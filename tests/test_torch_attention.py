@@ -1,0 +1,129 @@
+"""The PyTorch port's masked attention against the JAX package's.
+
+On the CPU ``masked_mha`` runs its plain version; it is held against the JAX
+Pallas kernel (interpret mode off-TPU) and the JAX reference, on the same
+numpy inputs, in float32 at 1e-5. The CUDA kernel itself is held against the
+same plain version on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from outfitx_tpu.ops.attention import _mha_reference
+from outfitx_tpu.ops.attention import masked_mha as jax_masked_mha
+from outfitx_tpu_torch.ops import attention
+from outfitx_tpu_torch.ops.attention import masked_mha, mha_reference
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+
+
+def _inputs(b, h, l, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, l, dh)).astype(np.float32) for _ in range(3))
+    pad = rng.random((b, l)) < 0.3
+    pad[:, 0] = False
+    pad[0] = True
+    pad[0, 0] = False  # key 0 only: the JAX kernel's batch-padding rows
+    pad[1] = True  # every key masked: uniform weights, not NaN
+    return q, k, v, pad
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [9, 17])
+def test_masked_mha_matches_jax(l, causal):
+    q, k, v, pad = _inputs(3, 4, l, 16, seed=l)
+    jq, jk, jv, jpad = (jnp.asarray(a) for a in (q, k, v, pad))
+    want_pallas = np.asarray(
+        jax_masked_mha(jq, jk, jv, jpad, causal=causal, impl="pallas")
+    )
+    want_ref = np.asarray(_mha_reference(jq, jk, jv, jpad, causal=causal))
+    got = masked_mha(*_torch(q, k, v, pad), causal=causal).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=TOL)
+    np.testing.assert_allclose(got, want_ref, rtol=0, atol=TOL)
+
+
+def test_fully_masked_row_is_uniform():
+    q, k, v, pad = _inputs(3, 2, 9, 8)
+    got = masked_mha(*_torch(q, k, v, pad)).numpy()
+    uniform = v[1].mean(axis=1, keepdims=True)  # row 1: every key masked
+    np.testing.assert_allclose(got[1], np.broadcast_to(uniform, got[1].shape), atol=TOL)
+
+
+def test_bfloat16_rounds_probabilities_like_jax():
+    q, k, v, pad = _inputs(2, 2, 17, 16, seed=3)
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(_mha_reference(jq, jk, jv, jnp.asarray(pad)).astype(jnp.float32))
+    tq, tk, tv = (t.to(torch.bfloat16) for t in _torch(q, k, v))
+    got = masked_mha(tq, tk, tv, torch.from_numpy(pad)).float().numpy()
+    # Same roundings (P and the output to bfloat16); 2 bf16 ulps at O(1).
+    np.testing.assert_allclose(got, want, rtol=2.0**-7, atol=2.0**-7)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    before = masked_mha.launches
+    masked_mha(*_torch(*_inputs(2, 2, 9, 8)))
+    assert masked_mha.launches == before
+
+
+def test_kernel_branch_swallows_no_error(monkeypatch):
+    """With the kernel predicate true, a failing kernel load reaches the
+    caller, and the plain version is not run in its place."""
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return mha_reference(*args, **kwargs)
+
+    def broken_load(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(attention, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(attention._build, "load", broken_load)
+    monkeypatch.setattr(attention, "mha_reference", spy)
+    before = masked_mha.launches
+    with pytest.raises(RuntimeError, match="cannot build masked_mha_fwd"):
+        masked_mha(*_torch(*_inputs(2, 2, 9, 8)))
+    assert calls == []
+    assert masked_mha.launches == before
+
+
+@pytest.mark.parametrize(
+    "shape, dtype, error",
+    [
+        ((2, 2, 9, 12), torch.float32, ValueError),  # Dh not a multiple of 8
+        ((2, 2, 65, 16), torch.float32, ValueError),  # L above 64
+        ((2, 2, 9, 136), torch.float32, ValueError),  # Dh above 128
+        ((2, 2, 9, 16), torch.float16, TypeError),  # dtype the kernel lacks
+    ],
+)
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(
+    monkeypatch, shape, dtype, error
+):
+    monkeypatch.setattr(attention, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(
+        attention._build, "load", lambda name: pytest.fail("kernel was loaded")
+    )
+    q = torch.zeros(shape, dtype=dtype)
+    pad = torch.zeros(shape[0], shape[2], dtype=torch.bool)
+    with pytest.raises(error):
+        masked_mha(q, q.clone(), q.clone(), pad)
+
+
+def test_kernel_wrapper_rejects_noncontiguous(monkeypatch):
+    monkeypatch.setattr(attention, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(
+        attention._build, "load", lambda name: pytest.fail("kernel was loaded")
+    )
+    q = torch.zeros(2, 9, 2, 16).transpose(1, 2)
+    pad = torch.zeros(2, 9, dtype=torch.bool)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_mha(q, q, q, pad)

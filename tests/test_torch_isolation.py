@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: nothing in ``outfitx_tpu_torch`` or in
+``chip_smoke.py`` imports JAX or the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "outfitx_tpu"}
+PORT_FILES = sorted((ROOT / "outfitx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) > 10
+    assert (ROOT / "outfitx_tpu_torch" / "csrc" / "masked_mha_fwd.cu").is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "def jaxy():\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "before = jaxy()\n"
+        "import outfitx_tpu_torch\n"
+        "for m in pkgutil.walk_packages(outfitx_tpu_torch.__path__, 'outfitx_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "added = sorted(set(jaxy()) - set(before))\n"
+        "assert not added, added\n"
+        "print('ok', len([m for m in sys.modules if m.startswith('outfitx_tpu_torch')]))\n"
+    ) % (FORBIDDEN,)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
