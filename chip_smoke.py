@@ -5,25 +5,40 @@
 
 Phases, each printing one JSON line:
 1. env      torch and CUDA versions, the card's name and power limit;
-2. build    compile every CUDA kernel of the serving path with nvcc (sm_90a);
+2. build    compile every CUDA kernel (forward and backward attention) with
+            nvcc for sm_90a, one process per source, all started together;
 3. kernels  each kernel against its plain PyTorch version on the card;
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
             are checked, and the answers are held against the same engine on
             the CPU in float32;
-5. timing   kernel, plain version and the PyTorch library call at the
-            serving bucket (B=8) and the throughput shape (B=4096); the CP
-            forward's outfits/s at B=4096 and the cp_score latency.
+5. train    (a) one CP train step at full width (B=64, A=2, bf16) against
+            the same step on the CPU in float32 from the same weights;
+            (b) ``CPTrainer`` at the reference envelope (B=3072, A=4,
+            dropout 0.3, d=1536, 6 layers) for 3 optimizer steps, a
+            validation pass and the final checkpoint; (c) ``CIRTrainer``
+            warm-started from that checkpoint for 2 steps at B=512 and one
+            recall evaluation; the launch counts of (b) and (c) are checked;
+            then the CP train step's time, outfits/s, peak memory and a
+            profile by kernel;
+6. timing   kernel, plain version and the PyTorch library call at the
+            serving bucket (B=8) and the training and throughput shapes; the
+            CP forward's outfits/s at B=4096 and the cp_score latency.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
-and the repository around it; it imports nothing of JAX.
+and the repository around it; it imports nothing of JAX. Checkpoints and
+logs go under the checkout's ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -31,6 +46,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -52,6 +69,21 @@ FITB_MIN = 0.75
 SIM_OVERLAP_MIN = 0.9
 
 KERNEL_SHAPES = [(8, 16, 17, 96), (4096, 16, 17, 96), (3, 4, 9, 16)]
+# The backward is also held at the training envelope's microbatch.
+BWD_SHAPES = KERNEL_SHAPES + [(3072, 16, 17, 96)]
+
+# Training: the reference envelope (CP: B=3072 per microbatch, A=4) for 3
+# optimizer steps; CIR at its default B=512, A=1 for 2 steps.
+TRAIN_B, TRAIN_A, TRAIN_STEPS = 3072, 4, 3
+CIR_STEPS = 2
+# 4,096 items per category, so every CIR candidate pool holds 3,000
+# distinct items as in the reference.
+CATALOG_ITEMS = 32768
+# Card (bfloat16) against CPU (float32), one CP train step, same weights,
+# dropout 0 (the two devices' generators give different masks).
+CHECK_B, CHECK_A = 64, 2
+TRAIN_LOSS_REL = 0.02
+GRAD_COS_MIN = 0.99
 
 
 def emit(obj) -> None:
@@ -86,9 +118,30 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def cp_forward_profile(fn, top: int = 10):
+# Kernel kinds for the profile's summary, by a substring of the kernel's
+# name; the first match wins, and what matches none is "other".
+KERNEL_KINDS = (
+    ("masked_mha_fwd", ("masked_mha_fwd",)),
+    ("masked_mha_bwd", ("masked_mha_bwd",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("random", ("distribution", "philox", "random")),
+    ("reduce", ("reduce_kernel",)),
+    ("copy", ("copy",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _kind(name: str) -> str:
+    return next(
+        (kind for kind, keys in KERNEL_KINDS if any(k in name for k in keys)),
+        "other",
+    )
+
+
+def profile_call(fn, top: int = 10):
     """Device time by kernel over one call of ``fn``, from torch.profiler:
-    the call's wall time, the device's busy time, and the ``top`` kernels."""
+    the call's wall time, the device's busy time, the time by kernel kind
+    and the ``top`` kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -106,11 +159,19 @@ def cp_forward_profile(fn, top: int = 10):
     for e in kernels:
         ms, n = rows.get(e.name, (0.0, 0))
         rows[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    kinds = {}
+    for name, (ms, n) in rows.items():
+        k_ms, k_n = kinds.get(_kind(name), (0.0, 0))
+        kinds[_kind(name)] = (k_ms + ms, k_n + n)
     busy = sum(ms for ms, _ in rows.values())
     ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy,
+        "by_kind": {
+            k: {"device_ms": ms, "calls": n}
+            for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])
+        },
         "kernels": [
             {"name": name[:90], "device_ms": ms, "calls": n}
             for name, (ms, n) in ranked
@@ -135,14 +196,17 @@ def attention_inputs(shape, dtype, seed: int):
     return q, k, v, pad
 
 
-def attention_bound(shape, dtype):
-    """Least time (ms) for the function on these inputs: q, k, v read and
-    out written once, plus the mask; 4*B*H*L*L*Dh operations (two products)
-    at the dtype's peak."""
+def attention_bound(shape, dtype, backward: bool = False):
+    """Least time (ms) for the function on these inputs, at the dtype's
+    peak. Forward: q, k, v read and out written once, plus the mask;
+    4*B*H*L*L*Dh operations (two products). Backward: q, k, v, g read and
+    dq, dk, dv written once, plus the mask; 10*B*H*L*L*Dh operations (S,
+    dP, dV, dQ and dK)."""
     b, h, l, dh = shape
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * b * h * l * dh * elem + b * l
-    ops = 4 * b * h * l * l * dh
+    tensors, products = (7, 5) if backward else (4, 2)
+    nbytes = tensors * b * h * l * dh * elem + b * l
+    ops = 2 * products * b * h * l * l * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -166,7 +230,7 @@ def phase_build():
     from outfitx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["masked_mha_fwd"])
+    report = _build.build(["masked_mha_fwd", "masked_mha_bwd"])
     ptxas = {
         name: [ln.strip() for ln in r["ptxas"].splitlines()
                if "registers" in ln or "spill" in ln]
@@ -180,38 +244,77 @@ def phase_build():
     })
 
 
-def phase_kernels():
-    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+def _compare(got, ref, dtype):
+    """(max |got - ref|, within the dtype's limit) for one output."""
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= F32_TOL).all())
+    else:
+        ok = bool((err <= BF16_REL * torch.clamp_min(ref.float().abs(), 1.0)).all())
+    return float(err.max()), ok
 
-    cases = []
-    for si, shape in enumerate(KERNEL_SHAPES):
+
+def _cases():
+    for si, shape in enumerate(BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
-                q, k, v, pad = attention_inputs(shape, dtype, seed=si)
-                got = _masked_mha_cuda(q, k, v, pad, causal)
-                ref = mha_reference(q, k, v, pad, causal)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got.float()).all()),
-                      f"non-finite kernel output at {shape} {dtype}")
-                err = (got.float() - ref.float()).abs()
-                if dtype == torch.float32:
-                    ok = bool((err <= F32_TOL).all())
-                else:
-                    lim = BF16_REL * torch.clamp_min(ref.float().abs(), 1.0)
-                    ok = bool((err <= lim).all())
-                case = {
-                    "shape": list(shape), "dtype": str(dtype).split(".")[1],
-                    "causal": causal, "max_abs_err": float(err.max()), "ok": ok,
-                }
-                cases.append(case)
-                check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
-    emit({"phase": "kernels", "cases": cases})
-    main = next(
-        c for c in cases
-        if c["shape"] == list(KERNEL_SHAPES[0]) and c["dtype"] == "bfloat16"
-        and not c["causal"]
+                yield si, shape, dtype, causal
+
+
+def phase_kernels():
+    from outfitx_tpu_torch.ops.attention import (
+        _masked_mha_bwd_cuda,
+        _masked_mha_cuda,
+        mha_bwd_reference,
+        mha_reference,
     )
-    return main["max_abs_err"]
+
+    fwd_cases, bwd_cases = [], []
+    for si, shape, dtype, causal in _cases():
+        q, k, v, pad = attention_inputs(shape, dtype, seed=si)
+        tag = {"shape": list(shape), "dtype": str(dtype).split(".")[1], "causal": causal}
+        if shape in KERNEL_SHAPES:
+            got = _masked_mha_cuda(q, k, v, pad, causal)
+            ref = mha_reference(q, k, v, pad, causal)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"non-finite masked_mha_fwd output at {tag}")
+            err, ok = _compare(got, ref, dtype)
+            case = {**tag, "max_abs_err": err, "ok": ok}
+            fwd_cases.append(case)
+            check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
+
+        gen = torch.Generator(device="cuda").manual_seed(100 + si)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        got = _masked_mha_bwd_cuda(q, k, v, pad, g, causal)
+        ref = mha_bwd_reference(q, k, v, pad, g, causal)
+        torch.cuda.synchronize()
+        case = dict(tag)
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"non-finite masked_mha_bwd {name} at {tag}")
+            case[f"{name}_max_abs_err"], case[f"{name}_ok"] = _compare(a, r, dtype)
+        # A masked key of a row that keeps any key has P == 0 exactly, so
+        # its dk and dv must be exactly 0 (a fully masked row is uniform).
+        masked = (pad & ~pad[:, :1])[:, None, :, None].expand(shape)
+        case["masked_keys_zero"] = all(bool((t[masked] == 0).all()) for t in got[1:])
+        case["max_abs_err"] = max(case[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+        bwd_cases.append(case)
+        check(all(case[f"{n}_ok"] for n in ("dq", "dk", "dv")),
+              f"masked_mha_bwd disagrees with its plain version: {case}")
+        check(case["masked_keys_zero"], f"masked_mha_bwd: masked keys not zero: {case}")
+    emit({"phase": "kernels", "masked_mha_fwd": fwd_cases, "masked_mha_bwd": bwd_cases})
+
+    def main_err(cases, shape):
+        return next(
+            c["max_abs_err"] for c in cases
+            if c["shape"] == list(shape) and c["dtype"] == "bfloat16" and not c["causal"]
+        )
+
+    return {
+        "masked_mha_fwd": main_err(fwd_cases, KERNEL_SHAPES[0]),
+        "masked_mha_bwd": main_err(bwd_cases, (TRAIN_B, 16, 17, 96)),
+    }
 
 
 def _requests(catalog, rng):
@@ -345,19 +448,297 @@ def phase_serve():
         "cir_top1_agree": top1, "cir_top1_worst_rel_gap": worst_gap,
         "fitb_agree": fitb, "similar_overlap": overlap,
     })
-    return gpu, launches
+    return gpu, {"masked_mha_fwd": launches}
+
+
+def _cp_step_grads(model, catalog, split, device):
+    """One CP train step (B=CHECK_B, A=CHECK_A) from the model's weights:
+    (loss, {name: mean gradient on the CPU})."""
+    from outfitx_tpu_torch.core.config import OptimizerConfig
+    from outfitx_tpu_torch.data.sampler import cp_train_batches
+    from outfitx_tpu_torch.train.optim import AdamW
+    from outfitx_tpu_torch.train.state import TrainState
+    from outfitx_tpu_torch.train.steps import cp_train_step
+
+    batch = next(cp_train_batches(
+        split, batch_size=CHECK_B, accum_steps=CHECK_A, epoch=0, seed=0
+    ))
+    state = TrainState.create(
+        model, AdamW(model.parameters(), OptimizerConfig(), 1), seed=0
+    )
+    out = cp_train_step(
+        state, torch.as_tensor(catalog, device=device),
+        {k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+    )
+    grads = {
+        n: p.grad.detach().double().cpu().reshape(-1)
+        for n, p in model.named_parameters() if p.grad is not None
+    }
+    return float(out["loss"]), grads
+
+
+def _train_step_check(cfg, data):
+    """(a): the card's bf16 CP train step against the CPU's float32 one."""
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+
+    cfg0 = dataclasses.replace(
+        cfg, transformer=dataclasses.replace(cfg.transformer, dropout=0.0)
+    )
+    gpu = OutfitXModel(cfg0, device="cuda", seed=0, trainable=True)
+    cpu = OutfitXModel(
+        dataclasses.replace(cfg0, compute_dtype="float32"), device="cpu",
+        trainable=True,
+    )
+    cpu.load_state_dict(gpu.state_dict())
+    emb = data.catalog.embeddings
+    loss_gpu, grads_gpu = _cp_step_grads(gpu, emb, data.cp_train, "cuda")
+    loss_cpu, grads_cpu = _cp_step_grads(cpu, emb, data.cp_train, "cpu")
+    check(sorted(grads_gpu) == sorted(grads_cpu), "gradients of other parameters")
+    cos = {
+        n: float(F.cosine_similarity(grads_gpu[n], grads_cpu[n], dim=0))
+        for n in grads_cpu
+    }
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    check(math.isfinite(loss_gpu), "non-finite card train loss")
+    check(rel <= TRAIN_LOSS_REL, f"card train loss {loss_gpu} vs CPU {loss_cpu}")
+    check(cos[worst] >= GRAD_COS_MIN, f"gradient of {worst}: cosine {cos[worst]}")
+    return {
+        "batch": CHECK_B, "accumulation": CHECK_A,
+        "loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel_err": rel,
+        "grads_compared": len(cos), "worst_grad_cosine": cos[worst],
+        "worst_grad": worst,
+    }
+
+
+def _logged(log_dir, run_name, split):
+    path = pathlib.Path(log_dir) / f"{run_name}_metrics.jsonl"
+    recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    return [r for r in recs if r["split"] == split]
+
+
+def _expected_launches(n_layers, trainer, steps):
+    """(forward, backward) launches of ``steps`` train steps and one
+    validation sweep over the trainer's staged eval batches."""
+    micro = trainer.cfg.accumulation_steps * steps
+    return (
+        n_layers * (micro + len(trainer._eval_batches)),
+        n_layers * micro,
+    )
+
+
+def _cp_trainer_run(cfg, data, root):
+    """(b): CPTrainer at the reference envelope."""
+    from outfitx_tpu_torch.core.config import CPTrainConfig
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.train.cp_trainer import CPTrainer
+
+    tcfg = CPTrainConfig(
+        n_epochs=1, batch_size=TRAIN_B, accumulation_steps=TRAIN_A,
+        checkpoint_dir=str(root / "ckpt"), log_dir=str(root / "logs"),
+    )
+    trainer = CPTrainer(
+        tcfg, cfg, catalog=data.catalog, train_split=data.cp_train,
+        valid_split=data.cp_valid, device="cuda",
+    )
+    with trainer as t:
+        before = {n: p.detach().clone() for n, p in t.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        masked_mha.launches = masked_mha.bwd_launches = 0
+        t0 = time.perf_counter()
+        valid = t.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = (masked_mha.launches, masked_mha.bwd_launches)
+        peak = torch.cuda.max_memory_allocated()
+        n_layers = cfg.transformer.n_layers
+        want = _expected_launches(n_layers, t, TRAIN_STEPS)
+        check(t.state.step == TRAIN_STEPS, f"CPTrainer took {t.state.step} steps")
+        check(launches == want, f"CPTrainer launches {launches}, expected {want}")
+        on_path = [n for n, p in t.model.named_parameters() if p.grad is not None]
+        unchanged = [
+            n for n, p in t.model.named_parameters()
+            if n in on_path and torch.equal(p.detach(), before[n])
+        ]
+        check(not unchanged, f"parameters unchanged by training: {unchanged}")
+    train = _logged(tcfg.log_dir, t.model_name, "train")
+    losses = [r["loss"] for r in train] + [valid["loss"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite CP loss {losses}")
+
+    final = t.ckpt.restore("final")
+    live = t.model.state_dict()
+    check(sorted(final["params"]) == sorted(live), "checkpoint parameter names")
+    check(all(torch.equal(final["params"][n], live[n].float().cpu()) for n in live),
+          "checkpoint parameters differ from the model's")
+    check(int(final["opt_state"]["count"]) == TRAIN_STEPS, "checkpoint optimizer count")
+    return t, {
+        "batch": TRAIN_B, "accumulation": TRAIN_A, "steps": t.state.step,
+        "dropout": cfg.transformer.dropout, "train_outfits": len(data.cp_train),
+        "valid_outfits": len(data.cp_valid), "run_s": run_s,
+        "train_loss": train[-1]["loss"], "valid": valid,
+        "masked_mha_fwd_launches": launches[0],
+        "masked_mha_bwd_launches": launches[1],
+        "peak_memory_bytes": peak, "params_on_path": len(on_path),
+        "checkpoint": "final round-trips",
+    }
+
+
+def _cir_trainer_run(cfg, data, cp_trainer, root):
+    """(c): CIRTrainer warm-started from the CP trainer's final checkpoint."""
+    from outfitx_tpu_torch.core.config import CIRTrainConfig
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.train.cir_trainer import CIRTrainer
+
+    tcfg = CIRTrainConfig(
+        n_epochs=1, checkpoint_dir=str(root / "ckpt"), log_dir=str(root / "logs"),
+        warm_start_from=str(cp_trainer.ckpt.path("final")),
+    )
+    check(len(data.cir_train) == tcfg.batch_size * CIR_STEPS, "CIR split size")
+    trainer = CIRTrainer(
+        tcfg, cfg, catalog=data.catalog, train_split=data.cir_train,
+        valid_split=data.cir_valid, pool_threshold=1, device="cuda",
+    )
+    cp_params = cp_trainer.model.state_dict()
+    with trainer as t:
+        warm = t.model.state_dict()
+        check(all(torch.equal(warm[n], cp_params[n]) for n in cp_params),
+              "CIR warm start differs from the CP checkpoint")
+        masked_mha.launches = masked_mha.bwd_launches = 0
+        t0 = time.perf_counter()
+        valid = t.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = (masked_mha.launches, masked_mha.bwd_launches)
+        want = _expected_launches(cfg.transformer.n_layers, t, CIR_STEPS)
+        check(t.state.step == CIR_STEPS, f"CIRTrainer took {t.state.step} steps")
+        check(launches == want, f"CIRTrainer launches {launches}, expected {want}")
+    train = _logged(tcfg.log_dir, t.model_name, "train")
+    recall = {k: v for k, v in valid.items() if k.startswith("recall@")}
+    check(len(recall) == len(tcfg.recall_ks), f"no recall computed: {valid}")
+    check(all(0.0 <= x <= 1.0 for x in recall.values()), f"recall {recall}")
+    losses = [r["loss"] for r in train] + [valid["loss"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite CIR loss {losses}")
+    return {
+        "batch": tcfg.batch_size, "steps": t.state.step, "run_s": run_s,
+        "train_loss": train[-1]["loss"], "valid": valid,
+        "pools": len(t._pools.pools), "pool_size": t._pools.pool_size,
+        "masked_mha_fwd_launches": launches[0],
+        "masked_mha_bwd_launches": launches[1],
+    }
+
+
+def _step_timing(cp_trainer):
+    """The CP train step at B=TRAIN_B x A=TRAIN_A: host clock around
+    synchronised steps, and a profile of one step by kernel."""
+    from outfitx_tpu_torch.train.steps import cp_train_step
+
+    t = cp_trainer
+    batch = next(t._iter_train_batches(0))
+
+    def step():
+        return cp_train_step(
+            t.state, t.catalog_dev, batch,
+            alpha=t.cfg.focal_alpha, gamma=t.cfg.focal_gamma,
+        )
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.mean(times))
+    return {
+        "train_step_ms": ms,
+        "train_step_ms_each": times,
+        "trained_outfits_per_s": TRAIN_B * TRAIN_A / (ms / 1e3),
+        "train_step_profile": profile_call(step, top=14),
+    }
+
+
+def phase_train():
+    from outfitx_tpu_torch.core.config import OutfitXConfig
+    from outfitx_tpu_torch.data.synthetic import make_synthetic
+
+    cfg = OutfitXConfig()
+    root = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def synthetic(n_outfits):
+        return make_synthetic(
+            n_items=CATALOG_ITEMS, d_embed=cfg.d_embed, n_outfits=n_outfits,
+            outfit_len=(3, cfg.max_outfit_len), max_len=cfg.max_outfit_len,
+            seed=0,
+        )
+
+    t0 = time.perf_counter()
+    cp_data = synthetic(TRAIN_B * TRAIN_A * TRAIN_STEPS)
+    # The same seed and catalog size give the same catalog.
+    cir_data = synthetic(512 * CIR_STEPS)
+    check(np.array_equal(cp_data.catalog.embeddings, cir_data.catalog.embeddings),
+          "the two synthetic catalogs differ")
+    data_s = time.perf_counter() - t0
+
+    step_check = _train_step_check(cfg, cp_data)
+    cp_trainer, cp = _cp_trainer_run(cfg, cp_data, root)
+    cir = _cir_trainer_run(cfg, cir_data, cp_trainer, root)
+    timing = _step_timing(cp_trainer)
+    emit({
+        "phase": "train",
+        "d_embed": cfg.d_embed, "n_layers": cfg.transformer.n_layers,
+        "catalog_items": cp_data.catalog.n_items, "data_s": data_s,
+        "step_check": step_check, "cp_trainer": cp, "cir_trainer": cir,
+        **timing,
+    })
+    return {
+        "masked_mha_fwd": cp["masked_mha_fwd_launches"] + cir["masked_mha_fwd_launches"],
+        "masked_mha_bwd": cp["masked_mha_bwd_launches"] + cir["masked_mha_bwd_launches"],
+    }
+
+
+def _bwd_timing(shape):
+    """masked_mha_bwd at one bf16 shape: kernel, plain version, and the
+    backward of ``scaled_dot_product_attention`` with the bool mask, timed
+    as (forward + backward) - forward on the same inputs."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_bwd_cuda, mha_bwd_reference
+
+    q, k, v, pad = attention_inputs(shape, torch.bfloat16, seed=7)
+    g = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    keep = ~pad[:, None, None, :]
+    iters = 200 if shape[0] <= 64 else 20
+    bound, bound_by = attention_bound(shape, torch.bfloat16, backward=True)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qr, kr, vr), g)
+
+    return {
+        "shape": list(shape),
+        "ms": cuda_ms(lambda: _masked_mha_bwd_cuda(q, k, v, pad, g, False), iters),
+        "plain_ms": cuda_ms(lambda: mha_bwd_reference(q, k, v, pad, g), iters),
+        "library_ms": cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(sdpa, iters),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
 
 
 def phase_timing(engine):
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
     per_shape = {}
-    for shape in KERNEL_SHAPES[:2]:
+    for batch in (8, TRAIN_B, 4096):
+        shape = (batch, 16, 17, 96)
         q, k, v, pad = attention_inputs(shape, torch.bfloat16, seed=7)
         keep = ~pad[:, None, None, :]
         iters = 200 if shape[0] <= 64 else 20
         bound, bound_by = attention_bound(shape, torch.bfloat16)
-        per_shape[shape[0]] = {
+        per_shape[batch] = {
             "shape": list(shape),
             "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, False), iters),
             "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad), iters),
@@ -368,6 +749,7 @@ def phase_timing(engine):
             "bound_ms": bound,
             "bound_by": bound_by,
         }
+    bwd = {batch: _bwd_timing((batch, 16, 17, 96)) for batch in (8, TRAIN_B)}
 
     cfg = engine.model_cfg
     b, l, d = 4096, cfg.max_outfit_len, cfg.d_embed
@@ -378,7 +760,7 @@ def phase_timing(engine):
     model = engine.cp_model
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model.cp_forward(emb, mask), iters=5, warmup=2)
-        profile = cp_forward_profile(lambda: model.cp_forward(emb, mask))
+        profile = profile_call(lambda: model.cp_forward(emb, mask))
 
     outfit = [int(i) for i in engine.catalog.item_ids[:4]]
     lat = []
@@ -390,6 +772,7 @@ def phase_timing(engine):
     emit({
         "phase": "timing",
         "masked_mha_fwd": per_shape,
+        "masked_mha_bwd": bwd,
         "cp_forward_b4096_ms": fwd_ms,
         "cp_forward_outfits_per_s": b / (fwd_ms / 1e3),
         "attention_share_of_cp_forward": (
@@ -400,7 +783,7 @@ def phase_timing(engine):
         "cp_score_p99_ms": float(np.percentile(lat, 99)),
         "cp_score_samples": int(lat.size),
     })
-    return per_shape
+    return per_shape, bwd
 
 
 def main() -> int:
@@ -417,25 +800,38 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     max_err = phase_kernels()
-    engine, launches = phase_serve()
-    timing = phase_timing(engine)
-    main_shape = timing[8]
-    emit({"kernels": [{
-        "name": "masked_mha_fwd",
-        "route": "cuda",
-        "source": "outfitx_tpu_torch/csrc/masked_mha_fwd.cu",
-        "replaces": "outfitx_tpu/ops/attention.py:76",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_shape["ms"],
-        "kernel_ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": main_shape["shape"],
-        "at_b4096": timing[4096],
-    }]})
+    engine, serve_launches = phase_serve()
+    train_launches = phase_train()
+    fwd, bwd = phase_timing(engine)
+    rows = [
+        ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
+            "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
+        }),
+        ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
+            "at_b8": bwd[8],
+        }),
+    ]
+    emit({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"outfitx_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": serve_launches.get(name, 0) + train_launches[name],
+            "launches_by_path": {
+                "serve": serve_launches.get(name, 0), "train": train_launches[name],
+            },
+            "max_abs_err": max_err[name],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            **more,
+        }
+        for name, replaces, main, more in rows
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

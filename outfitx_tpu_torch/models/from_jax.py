@@ -1,4 +1,4 @@
-"""The weight bridge: JAX parameter trees and checkpoints -> state dicts.
+"""The weight bridge between JAX parameter trees and state dicts.
 
 ``state_dict_from_jax`` is this package's own copy of the mapping in
 ``outfitx_tpu/models/export_torch.py:reference_state_dict``: the fused
@@ -6,7 +6,9 @@
 transposed to torch's (out, in). ``load_jax_checkpoint`` reads a checkpoint
 directory written by the JAX package's ``CheckpointManager`` (``state.npz``
 holding ``leaf_{i}`` byte buffers, ``tree.json`` holding the tree and each
-leaf's shape and dtype) with numpy alone.
+leaf's shape and dtype) with numpy alone. ``jax_params_from_state_dict``
+is the inverse of ``state_dict_from_jax``: the port's checkpoints store
+parameters in the JAX tree layout (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -64,18 +66,74 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _leaf(buf: np.ndarray, dtype: str, shape) -> Any:
+def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_jax``: an ``OutfitXModel`` state
+    dict as the JAX package's parameter tree of float32 numpy arrays, the
+    encoder layers stacked along a leading axis."""
+
+    def f32(t) -> np.ndarray:
+        return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    n_layers = 1 + max(
+        int(k.split(".")[2]) for k in sd if k.startswith("transformer_encoder.layers.")
+    )
+
+    def stack(name, fn=lambda t: t):
+        return np.stack([
+            fn(f32(sd[f"transformer_encoder.layers.{i}.{name}"]))
+            for i in range(n_layers)
+        ])
+
+    def split_qkv(w):  # (3d, d) rows [Wq; Wk; Wv] -> (d_in, 3, d_out)
+        return np.stack(np.split(w, 3, axis=0), axis=1).transpose(2, 1, 0)
+
+    params: Dict[str, Any] = {
+        "layers": {
+            "attn": {
+                "wqkv": stack("self_attn.in_proj_weight", split_qkv),
+                "bqkv": stack("self_attn.in_proj_bias", lambda b: b.reshape(3, -1)),
+                "wo": stack("self_attn.out_proj.weight", np.transpose),
+                "bo": stack("self_attn.out_proj.bias"),
+            },
+            "ffn": {
+                "w1": stack("linear1.weight", np.transpose),
+                "b1": stack("linear1.bias"),
+                "w2": stack("linear2.weight", np.transpose),
+                "b2": stack("linear2.bias"),
+            },
+            "ln1": {"scale": stack("norm1.weight"), "bias": stack("norm1.bias")},
+            "ln2": {"scale": stack("norm2.weight"), "bias": stack("norm2.bias")},
+        },
+        "outfit_token": f32(sd["outfit_token"]),
+        "target_image_emb": f32(sd["target_item_image_emb"]),
+        "cp_head": {
+            "w": f32(sd["cp_ffn.1.weight"]).T.copy(),
+            "b": f32(sd["cp_ffn.1.bias"]),
+        },
+        "cir_proj": {"w": f32(sd["cir_ffn.0.weight"]).T.copy()},
+    }
+    if "transformer_encoder.norm.weight" in sd:
+        params["final_ln"] = {
+            "scale": f32(sd["transformer_encoder.norm.weight"]),
+            "bias": f32(sd["transformer_encoder.norm.bias"]),
+        }
+    return params
+
+
+def _read_leaf(buf: np.ndarray, dtype: str, shape) -> Any:
     """One saved leaf: a flat uint8 buffer reinterpreted as its dtype.
     bfloat16 has no numpy dtype here, so it goes through torch."""
     if dtype == "bfloat16":
         bits = torch.from_numpy(buf.view(np.int16).copy())
         return bits.view(torch.bfloat16).reshape(shape)
+    if dtype == "bool":
+        return buf.astype(bool).reshape(shape)
     return buf.view(np.dtype(dtype)).reshape(shape)
 
 
-def load_jax_checkpoint(path: str | pathlib.Path) -> Dict[str, torch.Tensor]:
-    """A JAX checkpoint directory's parameters as an ``OutfitXModel`` state
-    dict (float32, on the CPU). Only the ``params`` subtree is read."""
+def read_checkpoint_tree(path: str | pathlib.Path) -> Dict[str, Any]:
+    """The whole tree of a ``state.npz`` checkpoint directory (written by
+    either package), leaves as numpy arrays (bfloat16 ones as tensors)."""
     path = pathlib.Path(path)
     if not (path / "state.npz").is_file():
         raise FileNotFoundError(
@@ -89,8 +147,17 @@ def load_jax_checkpoint(path: str | pathlib.Path) -> Dict[str, torch.Tensor]:
         def build(sk):
             if isinstance(sk, dict):
                 return {k: build(v) for k, v in sk.items()}
+            if isinstance(sk, list):
+                return [build(v) for v in sk]
+            if sk is None:
+                return None
             shape, dtype = specs[sk]
-            return _leaf(z[f"leaf_{sk}"], dtype, shape)
+            return _read_leaf(z[f"leaf_{sk}"], dtype, shape)
 
-        params = build(info["skeleton"]["params"])
-    return state_dict_from_jax(params)
+        return build(info["skeleton"])
+
+
+def load_jax_checkpoint(path: str | pathlib.Path) -> Dict[str, torch.Tensor]:
+    """A checkpoint directory's parameters as an ``OutfitXModel`` state
+    dict (float32, on the CPU)."""
+    return state_dict_from_jax(read_checkpoint_tree(path)["params"])

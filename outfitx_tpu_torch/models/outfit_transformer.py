@@ -1,4 +1,4 @@
-"""The OutfitX set transformer: outfit encoder and task heads, eval forward.
+"""The OutfitX set transformer: outfit encoder and task heads.
 
 The port of ``outfitx_tpu/models/outfit_transformer.py``. Parameter names
 follow the reference system's torch ``OutfitX.state_dict()`` (the layout
@@ -15,7 +15,14 @@ Numerics follow the JAX forward:
 - the prefix token (CP outfit token, CIR target token) is never masked;
 - scores and CIR embeddings are returned in float32.
 
-This slice is eval only: no dropout, and no parameter takes gradients.
+Dropout (train mode, ``model.train()``) sits at the JAX package's sites: the
+attention output before its residual add, the FFN hidden state after the
+activation, the FFN output, and the CP head's token state (the CIR head has
+none). There is no attention-probability dropout (the JAX package folds it
+into the output dropout). Masks come from ``core.rng.keep_mask`` with a
+``torch.Generator`` the caller passes in, scaled by the actual keep
+probability. A serving build (the default) has no trainable parameter; a
+training build (``trainable=True``) has trainable float32 parameters.
 """
 
 from __future__ import annotations
@@ -27,9 +34,21 @@ import torch
 from torch import nn
 
 from outfitx_tpu_torch.core import dtypes
+from outfitx_tpu_torch.core import rng as rng_ops
 from outfitx_tpu_torch.core.config import OutfitXConfig
 from outfitx_tpu_torch.core.device import resolve_device
 from outfitx_tpu_torch.ops import layer_norm, masked_mha, resolve_activation
+
+
+def _dropout(x, rate: float, gen: Optional[torch.Generator]):
+    """Inverted dropout at ``rate`` with a mask from ``gen``; identity at
+    rate 0 (eval mode passes 0)."""
+    if rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep, q = rng_ops.keep_mask(gen, rate, x.shape, x.device)
+    return torch.where(keep, x / q, torch.zeros_like(x))
 
 
 def _dense(x, weight, bias=None):
@@ -88,6 +107,7 @@ class _EncoderLayer(nn.Module):
         d = cfg.d_embed
         t = cfg.transformer
         self.norm_first = t.norm_first
+        self.dropout = t.dropout
         self.act = resolve_activation(t.activation)
         self.self_attn = _SelfAttention(d, t.n_heads)
         # The JAX package zero-pads the hidden width to ffn_pad_to at apply
@@ -99,13 +119,15 @@ class _EncoderLayer(nn.Module):
         self.norm1 = _LayerNorm(d)
         self.norm2 = _LayerNorm(d)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, gen=None):
+        rate = self.dropout if self.training else 0.0
         y = self.norm1(x) if self.norm_first else x
-        x = x + self.self_attn(y, pad_mask)
+        x = x + _dropout(self.self_attn(y, pad_mask), rate, gen)
         if not self.norm_first:
             x = self.norm1(x)
         y = self.norm2(x) if self.norm_first else x
-        x = x + self.linear2(self.act(self.linear1(y)))
+        hidden = _dropout(self.act(self.linear1(y)), rate, gen)
+        x = x + _dropout(self.linear2(hidden), rate, gen)
         if not self.norm_first:
             x = self.norm2(x)
         return x
@@ -119,9 +141,9 @@ class _Encoder(nn.Module):
         )
         self.norm = _LayerNorm(cfg.d_embed) if cfg.transformer.final_norm else None
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, gen=None):
         for layer in self.layers:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, gen)
         if self.norm is not None:
             x = self.norm(x)
         return x
@@ -131,7 +153,9 @@ class OutfitXModel(nn.Module):
     """Set transformer with the CP and CIR/FITB heads.
 
     Weights are random, drawn from ``seed`` with the JAX package's
-    distributions (not its numbers), until a state dict is loaded.
+    distributions (not its numbers), until a state dict is loaded. With
+    ``trainable`` the parameters take gradients; otherwise (serving) none
+    does.
     """
 
     def __init__(
@@ -140,6 +164,7 @@ class OutfitXModel(nn.Module):
         *,
         device: str | torch.device = "cuda",
         seed: int = 0,
+        trainable: bool = False,
     ):
         super().__init__()
         self.cfg = cfg = cfg or OutfitXConfig()
@@ -148,12 +173,14 @@ class OutfitXModel(nn.Module):
         self.transformer_encoder = _Encoder(cfg)
         self.outfit_token = nn.Parameter(torch.empty(d))
         self.target_item_image_emb = nn.Parameter(torch.empty(d // 2))
-        # Index 0 is the reference's dropout slot (inert in eval).
+        # Index 0 is the reference's dropout slot; the head's dropout is
+        # applied in cp_forward.
         self.cp_ffn = nn.Sequential(nn.Identity(), _Linear(d, 1))
         self.cir_ffn = nn.Sequential(_Linear(d, d, bias=False))
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(device=dev, dtype=dtypes.resolve(cfg.param_dtype))
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
+        self.eval()  # dropout only after an explicit .train()
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator):
@@ -185,35 +212,49 @@ class OutfitXModel(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return dtypes.resolve(self.cfg.compute_dtype)
 
-    def encode_set(self, tokens, pad_mask):
-        """tokens (B, S, D), pad_mask (B, S) bool with True = pad ->
-        states (B, S, D) in the compute dtype."""
-        return self.transformer_encoder(tokens.to(self.compute_dtype), pad_mask)
+    @property
+    def device(self) -> torch.device:
+        return self.outfit_token.device
 
-    def _with_prefix(self, prefix, outfit_embedding, outfit_mask):
+    def encode_set(self, tokens, pad_mask, generator=None):
+        """tokens (B, S, D), pad_mask (B, S) bool with True = pad ->
+        states (B, S, D) in the compute dtype. In train mode ``generator``
+        draws the dropout masks."""
+        return self.transformer_encoder(
+            tokens.to(self.compute_dtype), pad_mask, generator
+        )
+
+    def _with_prefix(self, prefix, outfit_embedding, outfit_mask, generator):
         b = outfit_embedding.shape[0]
         x = torch.cat([prefix, outfit_embedding.to(self.compute_dtype)], dim=1)
         keep = torch.zeros((b, 1), dtype=torch.bool, device=outfit_mask.device)
         mask = torch.cat([keep, outfit_mask], dim=1)
-        return self.encode_set(x, mask)
+        return self.encode_set(x, mask, generator)
 
-    def cp_forward(self, outfit_embedding, outfit_mask):
+    def cp_forward(self, outfit_embedding, outfit_mask, *, generator=None):
         """Compatibility logits (B,) float32. outfit_embedding (B, L, D),
         outfit_mask (B, L) bool, True = pad."""
         cdt = self.compute_dtype
         b = outfit_embedding.shape[0]
         tok = self.outfit_token.to(cdt)[None, None, :].expand(b, 1, -1)
-        states = self._with_prefix(tok, outfit_embedding, outfit_mask)
-        return self.cp_ffn(states[:, 0, :])[:, 0].float()
+        states = self._with_prefix(tok, outfit_embedding, outfit_mask, generator)
+        rate = self.cfg.transformer.dropout if self.training else 0.0
+        token_state = _dropout(states[:, 0, :], rate, generator)
+        return self.cp_ffn(token_state)[:, 0].float()
 
-    def cir_forward(self, outfit_embedding, outfit_mask, target_item_text_embedding):
+    def cir_forward(
+        self, outfit_embedding, outfit_mask, target_item_text_embedding,
+        *, generator=None,
+    ):
         """Predicted target-item embedding (B, D) float32; the target token
         is the learned image half joined to the given text half (B, D/2)."""
         cdt = self.compute_dtype
         b = outfit_embedding.shape[0]
         img = self.target_item_image_emb.to(cdt)[None, :].expand(b, -1)
         tok = torch.cat([img, target_item_text_embedding.to(cdt)], dim=-1)
-        states = self._with_prefix(tok[:, None, :], outfit_embedding, outfit_mask)
+        states = self._with_prefix(
+            tok[:, None, :], outfit_embedding, outfit_mask, generator
+        )
         return self.cir_ffn(states[:, 0, :]).float()
 
     # FITB shares the CIR forward.

@@ -1,14 +1,18 @@
-"""Masked multi-head set attention.
+"""Masked multi-head set attention, forward and backward.
 
 Inputs are (B, H, L, Dh) with a (B, L) bool key-padding mask (True = pad).
 Outfits are at most 16 items + 1 prefix token, so this is attention over
 tiny sequences: the whole (L, L) score block fits on chip.
 
-``masked_mha`` dispatches on where the tensors lie. A CUDA tensor goes to the
-hand-written kernel ``csrc/masked_mha_fwd.cu`` (the port of
-``outfitx_tpu/ops/attention.py:_mha_kernel``) or raises; a CPU tensor goes to
-``mha_reference``, the plain PyTorch version of the same function, which is
-also what the kernel is held against on the card.
+``masked_mha`` is differentiable through ``MaskedMHA``, a
+``torch.autograd.Function`` that saves q, k, v and the mask (the JAX custom
+VJP's residuals) and recomputes P in the backward. Both directions dispatch
+on where the tensors lie. A CUDA tensor goes to the hand-written kernels
+``csrc/masked_mha_fwd.cu`` and ``csrc/masked_mha_bwd.cu`` (the ports of
+``outfitx_tpu/ops/attention.py:_mha_kernel`` and ``:_mha_bwd_kernel``) or
+raises; a CPU tensor goes to ``mha_reference`` and ``mha_bwd_reference``,
+the plain PyTorch versions of the same functions, which are also what the
+kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -20,17 +24,16 @@ import torch
 from outfitx_tpu_torch.ops import _build
 
 _NEG = -1e9
-_KERNEL = "masked_mha_fwd"
+_FWD = "masked_mha_fwd"
+_BWD = "masked_mha_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_L = 64
 MAX_DH = 128
 
 
-def mha_reference(q, k, v, pad_mask, causal: bool = False):
-    """Plain PyTorch attention with the TPU kernel's numerics: float32
-    scores (operands widened exactly), the mask where-set to -1e9, float32
-    softmax, probabilities rounded to the input dtype before P V, float32
-    accumulation, output in the input dtype."""
+def _probs(q, k, pad_mask, causal: bool):
+    """float32 softmax of the masked scores: operands widened exactly, the
+    masks where-set to -1e9 (so a fully masked row is uniform, not NaN)."""
     dh = q.shape[-1]
     scale = 1.0 / (dh**0.5)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -39,9 +42,35 @@ def mha_reference(q, k, v, pad_mask, causal: bool = False):
         l = q.shape[2]
         above = torch.ones((l, l), dtype=torch.bool, device=q.device).triu(1)
         scores = scores.masked_fill(above, _NEG)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.matmul(probs.float(), v.float())
-    return out.to(q.dtype)
+    return torch.softmax(scores, dim=-1)
+
+
+def mha_reference(q, k, v, pad_mask, causal: bool = False):
+    """Plain PyTorch attention with the TPU kernel's numerics: float32
+    scores and softmax, probabilities rounded to the input dtype before P V,
+    float32 accumulation, output in the input dtype."""
+    probs = _probs(q, k, pad_mask, causal).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def mha_bwd_reference(q, k, v, pad_mask, g, causal: bool = False):
+    """Plain PyTorch version of the fused backward (``_mha_bwd_kernel``),
+    with its roundings: P recomputed and kept in float32; dv = Pb^T g with
+    Pb = P in the input dtype; dp = g v^T in float32; ds = P o (dp -
+    rowsum(dp o P)); dsb = ds * scale in the input dtype before dq = dsb k
+    and dk = dsb^T q. Returns (dq, dk, dv) in the input dtype."""
+    dt = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    p = _probs(q, k, pad_mask, causal)
+    pb = p.to(dt).float()
+    gf = g.float()
+    dv = torch.matmul(pb.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsb = (ds * scale).to(dt).float()
+    dq = torch.matmul(dsb, k.float())
+    dk = torch.matmul(dsb.transpose(-1, -2), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _wants_kernel(t: torch.Tensor) -> bool:
@@ -49,13 +78,14 @@ def _wants_kernel(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _check(q, k, v, pad_mask):
+def _check(q, k, v, pad_mask, g=None):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"masked_mha kernel takes float32 or bfloat16, not {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, Dh), got {tuple(q.shape)}")
     b, _, l, dh = q.shape
-    for name, t in (("k", k), ("v", v)):
+    same = {"k": k, "v": v} if g is None else {"k": k, "v": v, "g": g}
+    for name, t in same.items():
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
     if pad_mask.dtype != torch.bool or tuple(pad_mask.shape) != (b, l):
@@ -67,25 +97,25 @@ def _check(q, k, v, pad_mask):
             f"masked_mha kernel takes 1 <= L <= {MAX_L} and Dh a multiple of "
             f"8 up to {MAX_DH}, got L={l}, Dh={dh}"
         )
-    for name, t in (("q", q), ("k", k), ("v", v), ("pad_mask", pad_mask)):
+    tensors = {"q": q, **same}
+    for name, t in {**tensors, "pad_mask": pad_mask}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _bind():
-    lib = _build.load(_KERNEL)
-    fn = lib.masked_mha_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _bind(name: str, n_ptrs: int):
+    fn = getattr(_build.load(name), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
     _check(q, k, v, pad_mask)
-    fn = _bind()
+    fn = _bind(_FWD, 5)
     b, h, l, dh = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -95,21 +125,63 @@ def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
         stream,
     )
     if err != 0:
-        raise RuntimeError(f"masked_mha_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{_FWD} launch failed: cudaError {err}")
     masked_mha.launches += 1
     return out
+
+
+def _masked_mha_bwd_cuda(q, k, v, pad_mask, g, causal: bool):
+    _check(q, k, v, pad_mask, g)
+    fn = _bind(_BWD, 8)
+    b, h, l, dh = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        pad_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, l, dh, int(causal), _DTYPE_CODES[q.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{_BWD} launch failed: cudaError {err}")
+    masked_mha.bwd_launches += 1
+    return dq, dk, dv
+
+
+class MaskedMHA(torch.autograd.Function):
+    """The attention core with its fused backward: on the card both
+    directions launch their kernel, on the CPU both run the plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, causal):
+        ctx.save_for_backward(q, k, v, pad_mask)
+        ctx.causal = causal
+        if _wants_kernel(q):
+            return _masked_mha_cuda(q, k, v, pad_mask, causal)
+        return mha_reference(q, k, v, pad_mask, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, pad_mask = ctx.saved_tensors
+        if _wants_kernel(q):
+            dq, dk, dv = _masked_mha_bwd_cuda(
+                q, k, v, pad_mask, g.contiguous(), ctx.causal
+            )
+        else:
+            dq, dk, dv = mha_bwd_reference(q, k, v, pad_mask, g, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def masked_mha(q, k, v, pad_mask, causal: bool = False):
     """Multi-head attention with a key-padding mask (True = pad) and an
     optional causal mask. q, k, v: (B, H, L, Dh); pad_mask: (B, L) bool.
-    Returns (B, H, L, Dh) in q's dtype.
+    Returns (B, H, L, Dh) in q's dtype; differentiable in q, k and v.
 
-    On the card this launches the CUDA kernel and adds one to
-    ``masked_mha.launches``; on the CPU it runs ``mha_reference``."""
-    if _wants_kernel(q):
-        return _masked_mha_cuda(q, k, v, pad_mask, causal)
-    return mha_reference(q, k, v, pad_mask, causal)
+    On the card the forward launches its CUDA kernel and adds one to
+    ``masked_mha.launches``, the backward launches its own and adds one to
+    ``masked_mha.bwd_launches``; on the CPU both run the plain versions."""
+    return MaskedMHA.apply(q, k, v, pad_mask, causal)
 
 
 masked_mha.launches = 0
+masked_mha.bwd_launches = 0

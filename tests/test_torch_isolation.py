@@ -33,7 +33,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    assert (ROOT / "outfitx_tpu_torch" / "csrc" / "masked_mha_fwd.cu").is_file()
+    for name in ("masked_mha_fwd", "masked_mha_bwd"):
+        assert (ROOT / "outfitx_tpu_torch" / "csrc" / f"{name}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
