@@ -5,9 +5,13 @@
 
 Phases, each printing one JSON line:
 1. env      torch and CUDA versions, the card's name and power limit;
-2. build    compile every CUDA kernel (forward and backward attention) with
-            nvcc for sm_90a, one process per source, all started together;
-3. kernels  each kernel against its plain PyTorch version on the card;
+2. build    compile every CUDA kernel (forward and backward attention, the
+            fused attention block, the fused tower MLP) with nvcc for
+            sm_90a, one process per source, all started together;
+3. kernels  each kernel against its plain PyTorch version on the card, at
+            the set transformer's shapes and at the towers' (attention at
+            L=196, 50, 77 causal and 256; attn_block at the SigLIP text
+            tower's 2048x64x768; mlp_fused at 131072x768x3072);
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
@@ -22,9 +26,20 @@ Phases, each printing one JSON line:
             recall evaluation; the launch counts of (b) and (c) are checked;
             then the CP train step's time, outfits/s, peak memory and a
             profile by kernel;
-6. timing   kernel, plain version and the PyTorch library call at the
-            serving bucket (B=8) and the training and throughput shapes; the
-            CP forward's outfits/s at B=4096 and the cp_score latency.
+6. precompute  ``PrecomputeRunner`` with the SigLIP item encoder at full
+            width (ViT-B/16 at 196 tokens, text at L=64, d=768, 12 layers,
+            random weights from seed 0): 4,096 synthetic items at batch 2048
+            with the fused attention block as the text tower's route, shards
+            written and read back, launch counts checked exactly, every
+            embedding finite with unit-norm halves; the first 32 items
+            against the CPU in float32 (cosine per half); one batch with the
+            fused MLP in both towers against the first pass; one small batch
+            of the CLIP pair (L=50 and causal L=77); items/s, seconds per
+            batch, peak memory and a profile of one batch by kernel kind;
+7. timing   kernel, plain version and the PyTorch library call at the
+            serving bucket (B=8), the training and throughput shapes and
+            the towers' shapes at batch 2048; the CP forward's outfits/s at
+            B=4096 and the cp_score latency.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -68,7 +83,44 @@ CIR_TIE_REL = 0.02
 FITB_MIN = 0.75
 SIM_OVERLAP_MIN = 0.9
 
+# attn_block and mlp_fused in float32 sum 768 or 3072 products of O(0.1..1)
+# in another order than cuBLAS does in the plain version (chunks of 64 or 128,
+# heads one after another); at float32's 6e-8 a sum of 3072 such terms moves
+# by up to a few 1e-6 and the largest of 1e8 outputs by more, so these two
+# get 5e-5 in float32. The attention kernels sum at most 256 terms and keep
+# F32_TOL.
+F32_SUM_TOL = 5e-5
+# Precompute: card (bfloat16) against CPU (float32), same weights, cosine of
+# each modality's unit-norm half; and the fused-MLP pass against the plain one
+# (both bfloat16 on the card; they round the MLP's mid tensor at other places).
+PRECOMPUTE_COS_MIN = 0.99
+FUSED_COS_MIN = 0.999
+
 KERNEL_SHAPES = [(8, 16, 17, 96), (4096, 16, 17, 96), (3, 4, 9, 16)]
+# The forward at tower lengths: SigLIP ViT-B/16 (196 patches), CLIP ViT-B/32
+# (50 tokens), CLIP text (77, causal), and the kernel's largest L and Dh.
+TOWER_MHA_SHAPES = [
+    ((64, 12, 196, 64), False), ((64, 12, 50, 64), False),
+    ((64, 8, 77, 64), True), ((2, 4, 256, 128), False),
+]
+# attn_block (B, L, d, H, causal): the SigLIP text tower, the set transformer
+# in eval, and a small causal case.
+ATTN_BLOCK_SHAPES = [
+    (2048, 64, 768, 12, False), (8, 17, 1536, 16, False), (3, 16, 64, 4, True),
+]
+# mlp_fused (rows, d, d_mlp, act): the SigLIP text tower's rows, the CLIP
+# text tower's widths, and a ragged row count.
+MLP_SHAPES = [
+    (131072, 768, 3072, "gelu_tanh"), (4096, 512, 2048, "quick_gelu"),
+    (1000, 64, 96, "gelu"),
+]
+KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused"]
+# Precompute: the JAX CLI's default synthetic catalog and PrecomputeConfig's
+# batch; the fused-MLP pass and the CLIP pair run one smaller sweep each.
+PRECOMPUTE_ITEMS = 4096
+FUSED_ITEMS = 2048
+CLIP_ITEMS = 64
+CPU_CHECK_ITEMS = 32
 # The backward is also held at the training envelope's microbatch.
 BWD_SHAPES = KERNEL_SHAPES + [(3072, 16, 17, 96)]
 
@@ -123,9 +175,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 KERNEL_KINDS = (
     ("masked_mha_fwd", ("masked_mha_fwd",)),
     ("masked_mha_bwd", ("masked_mha_bwd",)),
+    ("attn_block", ("attn_block",)),
+    ("mlp_fused", ("mlp_fused",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("random", ("distribution", "philox", "random")),
     ("reduce", ("reduce_kernel",)),
+    ("host_transfer", ("Memcpy", "Memset")),
     ("copy", ("copy",)),
     ("elementwise", ("elementwise",)),
 )
@@ -212,6 +267,63 @@ def attention_bound(shape, dtype, backward: bool = False):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _uniform(shape, bound, gen, dtype):
+    return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1) * bound).to(dtype)
+
+
+def attn_block_inputs(shape, dtype, seed: int):
+    """y ~ N(0, 1) as after a LayerNorm; weights uniform(+-1/sqrt(d)) as the
+    towers' init; a key-padding mask that keeps the first few tokens of each
+    row, as the hash tokenizer pads a 64-token row, with row 0 fully masked."""
+    b, l, d, h, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bound = 1.0 / math.sqrt(d)
+    y = torch.randn((b, l, d), generator=gen, device="cuda").to(dtype)
+    wqkv = _uniform((d, 3, d), bound, gen, dtype)
+    bqkv = _uniform((3, d), bound, gen, dtype)
+    wo = _uniform((d, d), bound, gen, dtype)
+    kept = torch.randint(2, max(3, l // 8) + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= kept[:, None]
+    pad[0] = True
+    return y, wqkv, bqkv, wo, pad, h, causal
+
+
+def attn_block_bound(shape, dtype):
+    """Least time (ms): y, the weights and the mask read once, the float32
+    output written once; 2 B L d 3d (q, k, v) + 4 B H L L Dh (scores and
+    P v) + 2 B L d d (out-projection) operations."""
+    b, l, d, h, _ = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * l * d + 4 * d * d + 3 * d) * elem + b * l + b * l * d * 4
+    ops = 2 * b * l * d * 3 * d + 4 * b * l * l * d + 2 * b * l * d * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mlp_inputs(shape, dtype, seed: int):
+    rows, d, d_mlp, act = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    w1 = _uniform((d, d_mlp), 1.0 / math.sqrt(d), gen, dtype)
+    b1 = _uniform((d_mlp,), 1.0 / math.sqrt(d), gen, dtype)
+    w2 = _uniform((d_mlp, d), 1.0 / math.sqrt(d_mlp), gen, dtype)
+    b2 = _uniform((d,), 1.0 / math.sqrt(d_mlp), gen, dtype)
+    return x, w1, b1, w2, b2, act
+
+
+def mlp_bound(shape, dtype):
+    """Least time (ms): x, both weights and biases read once, the output
+    written once; 4 rows d d_mlp operations (two products)."""
+    rows, d, d_mlp, _ = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * rows * d + 2 * d * d_mlp + d + d_mlp) * elem
+    ops = 4 * rows * d * d_mlp
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_env():
     smi = nvidia_smi_line()
     emit({
@@ -230,7 +342,7 @@ def phase_build():
     from outfitx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["masked_mha_fwd", "masked_mha_bwd"])
+    report = _build.build(KERNELS)
     ptxas = {
         name: [ln.strip() for ln in r["ptxas"].splitlines()
                if "registers" in ln or "spill" in ln]
@@ -244,11 +356,11 @@ def phase_build():
     })
 
 
-def _compare(got, ref, dtype):
+def _compare(got, ref, dtype, f32_tol=F32_TOL):
     """(max |got - ref|, within the dtype's limit) for one output."""
     err = (got.float() - ref.float()).abs()
     if dtype == torch.float32:
-        ok = bool((err <= F32_TOL).all())
+        ok = bool((err <= f32_tol).all())
     else:
         ok = bool((err <= BF16_REL * torch.clamp_min(ref.float().abs(), 1.0)).all())
     return float(err.max()), ok
@@ -259,6 +371,65 @@ def _cases():
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 yield si, shape, dtype, causal
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _tower_kernel_checks():
+    """The forward attention at tower lengths, attn_block and mlp_fused, each
+    against its plain version on the card, float32 and bfloat16."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+    from outfitx_tpu_torch.ops.attn_block import _attn_block_cuda, attn_block_reference
+    from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
+
+    mha_cases, block_cases, mlp_cases = [], [], []
+    for si, (shape, causal) in enumerate(TOWER_MHA_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pad = attention_inputs(shape, dtype, seed=20 + si)
+            got = _masked_mha_cuda(q, k, v, pad, causal)
+            ref = mha_reference(q, k, v, pad, causal)
+            torch.cuda.synchronize()
+            tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"non-finite masked_mha_fwd output at {tag}")
+            err, ok = _compare(got, ref, dtype)
+            case = {**tag, "max_abs_err": err, "ok": ok}
+            mha_cases.append(case)
+            check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
+    for si, shape in enumerate(ATTN_BLOCK_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            y, wqkv, bqkv, wo, pad, h, causal = attn_block_inputs(shape, dtype, 30 + si)
+            scale = 1.0 / math.sqrt(shape[2] // h)
+            got = _attn_block_cuda(y, wqkv, bqkv, wo, pad, h, scale, causal)
+            ref = attn_block_reference(y, wqkv, bqkv, wo, pad, h, causal=causal)
+            torch.cuda.synchronize()
+            tag = {"shape": list(shape[:4]), "dtype": _dtype_name(dtype), "causal": causal}
+            check(got.dtype == torch.float32, f"attn_block output is {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"non-finite attn_block output at {tag}")
+            err, ok = _compare(got, ref, dtype, F32_SUM_TOL)
+            case = {**tag, "max_abs_err": err, "ok": ok}
+            block_cases.append(case)
+            check(ok, f"attn_block disagrees with its plain version: {case}")
+            del y, wqkv, bqkv, wo, got, ref
+    for si, shape in enumerate(MLP_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w1, b1, w2, b2, act = mlp_inputs(shape, dtype, 40 + si)
+            got = _mlp_fused_cuda(x, w1, b1, w2, b2, act)
+            ref = mlp_fused_reference(x, w1, b1, w2, b2, act=act)
+            torch.cuda.synchronize()
+            tag = {"shape": list(shape[:3]), "act": act, "dtype": _dtype_name(dtype)}
+            check(got.dtype == dtype, f"mlp_fused output is {got.dtype}")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"non-finite mlp_fused output at {tag}")
+            err, ok = _compare(got, ref, dtype, F32_SUM_TOL)
+            case = {**tag, "max_abs_err": err, "ok": ok}
+            mlp_cases.append(case)
+            check(ok, f"mlp_fused disagrees with its plain version: {case}")
+            del x, got, ref
+    torch.cuda.empty_cache()
+    return mha_cases, block_cases, mlp_cases
 
 
 def phase_kernels():
@@ -272,7 +443,7 @@ def phase_kernels():
     fwd_cases, bwd_cases = [], []
     for si, shape, dtype, causal in _cases():
         q, k, v, pad = attention_inputs(shape, dtype, seed=si)
-        tag = {"shape": list(shape), "dtype": str(dtype).split(".")[1], "causal": causal}
+        tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
         if shape in KERNEL_SHAPES:
             got = _masked_mha_cuda(q, k, v, pad, causal)
             ref = mha_reference(q, k, v, pad, causal)
@@ -303,7 +474,13 @@ def phase_kernels():
         check(all(case[f"{n}_ok"] for n in ("dq", "dk", "dv")),
               f"masked_mha_bwd disagrees with its plain version: {case}")
         check(case["masked_keys_zero"], f"masked_mha_bwd: masked keys not zero: {case}")
-    emit({"phase": "kernels", "masked_mha_fwd": fwd_cases, "masked_mha_bwd": bwd_cases})
+    tower_mha, block_cases, mlp_cases = _tower_kernel_checks()
+    fwd_cases += tower_mha
+    emit({
+        "phase": "kernels", "masked_mha_fwd": fwd_cases,
+        "masked_mha_bwd": bwd_cases, "attn_block": block_cases,
+        "mlp_fused": mlp_cases,
+    })
 
     def main_err(cases, shape):
         return next(
@@ -314,6 +491,14 @@ def phase_kernels():
     return {
         "masked_mha_fwd": main_err(fwd_cases, KERNEL_SHAPES[0]),
         "masked_mha_bwd": main_err(bwd_cases, (TRAIN_B, 16, 17, 96)),
+        "attn_block": next(
+            c["max_abs_err"] for c in block_cases
+            if c["shape"] == list(ATTN_BLOCK_SHAPES[0][:4]) and c["dtype"] == "bfloat16"
+        ),
+        "mlp_fused": next(
+            c["max_abs_err"] for c in mlp_cases
+            if c["shape"] == list(MLP_SHAPES[0][:3]) and c["dtype"] == "bfloat16"
+        ),
     }
 
 
@@ -699,6 +884,221 @@ def phase_train():
     }
 
 
+def _reset_tower_counts():
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.attn_block import attn_block
+    from outfitx_tpu_torch.ops.mlp import mlp_fused
+
+    masked_mha.launches = attn_block.launches = mlp_fused.launches = 0
+
+
+def _tower_counts():
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.attn_block import attn_block
+    from outfitx_tpu_torch.ops.mlp import mlp_fused
+
+    return {
+        "masked_mha_fwd": masked_mha.launches,
+        "attn_block": attn_block.launches,
+        "mlp_fused": mlp_fused.launches,
+    }
+
+
+def _read_shards(out_dir, model_name, prefix, n_shards):
+    import pickle
+
+    ids, embs = [], []
+    for i in range(n_shards):
+        with open(out_dir / f"{model_name}_{prefix}{i}.pkl", "rb") as f:
+            payload = pickle.load(f)
+        ids += payload["ids"]
+        embs.append(payload["embeddings"])
+    return ids, np.concatenate(embs)
+
+
+def _sweep(cfg, model_cfg, out_dir, n_items, want_launches, **runner_kw):
+    """One ``PrecomputeRunner`` sweep on the card: its result, its runner,
+    the shards read back, the launch counts of the run checked exactly, and
+    the embeddings checked (ids, shape, finite, unit-norm halves)."""
+    from outfitx_tpu_torch.train.precompute import PrecomputeRunner
+
+    runner = PrecomputeRunner(
+        cfg, model_cfg, output_dir=str(out_dir), synthetic_items=n_items,
+        device="cuda", **runner_kw,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_tower_counts()
+    result = runner.run()
+    torch.cuda.synchronize()
+    counts = _tower_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == want_launches,
+          f"precompute launches {counts}, expected {want_launches}")
+    check(result["items"] == n_items, f"precompute encoded {result['items']} items")
+    ids, emb = _read_shards(out_dir, model_cfg.model_name, cfg.shard_prefix, result["shards"])
+    check(ids == [10_000 + i for i in range(n_items)], "precompute shard ids")
+    d = model_cfg.d_embed
+    check(emb.shape == (n_items, d) and emb.dtype == np.float32,
+          f"precompute embeddings {emb.shape} {emb.dtype}")
+    check(bool(np.isfinite(emb).all()), "non-finite precompute embedding")
+    norms = np.stack([
+        np.linalg.norm(emb[:, : d // 2], axis=1), np.linalg.norm(emb[:, d // 2:], axis=1)
+    ])
+    check(bool(np.abs(norms - 1.0).max() <= 1e-3),
+          f"precompute halves off unit norm by {np.abs(norms - 1.0).max()}")
+    return result, runner, emb, counts, peak
+
+
+def _half_cosines(a, b):
+    """Smallest cosine over the items, for the image half and the text half."""
+    d = a.shape[1]
+    out = []
+    for half in (slice(0, d // 2), slice(d // 2, d)):
+        x, y = a[:, half].astype(np.float64), b[:, half].astype(np.float64)
+        cos = (x * y).sum(1) / (np.linalg.norm(x, axis=1) * np.linalg.norm(y, axis=1))
+        out.append(float(cos.min()))
+    return {"image": out[0], "text": out[1]}
+
+
+def _cpu_embeddings(runner, n_items):
+    """The first ``n_items`` items of the runner's sweep, encoded on the CPU
+    in float32 by the plain versions from the runner's weights."""
+    from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel
+    from outfitx_tpu_torch.train.precompute import PrecomputeRunner
+
+    enc = runner.encoder
+    cpu_enc = ItemEncoderModel(
+        enc.cfg,
+        vision_cfg=dataclasses.replace(enc.vision.cfg, compute_dtype="float32"),
+        text_cfg=dataclasses.replace(enc.text.cfg, compute_dtype="float32"),
+        device="cpu",
+    )
+    cpu_enc.load_state_dict(enc.state_dict())
+    cpu_runner = PrecomputeRunner(
+        dataclasses.replace(runner.cfg, batch_size=n_items), runner.model_cfg,
+        synthetic_items=n_items, encoder=cpu_enc, device="cpu",
+    )
+    return cpu_runner.encode_batch(next(cpu_runner._batches()))
+
+
+def phase_precompute():
+    from outfitx_tpu_torch.core.config import (
+        ItemEncoderConfig,
+        OutfitXConfig,
+        PrecomputeConfig,
+    )
+
+    root = ROOT / "build" / "chip_smoke" / "precompute"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = PrecomputeConfig(seed=0, dataset_dir=str(root))
+    # The SigLIP default at full width. No tokenizer files are in the
+    # repository, so the name is emptied and the hash tokenizer is used.
+    siglip = OutfitXConfig(item_encoder=dataclasses.replace(
+        ItemEncoderConfig(), text_model_name=""
+    ))
+    n_layers = 12
+    n_batches = -(-PRECOMPUTE_ITEMS // cfg.batch_size)
+    # (a) attention route "block", MLP plain: the text tower (L=64) goes
+    # through attn_block, the vision tower (L=196) through masked_mha.
+    result, runner, emb, counts, peak = _sweep(
+        cfg, siglip, root / "block", PRECOMPUTE_ITEMS,
+        {"masked_mha_fwd": n_layers * n_batches, "attn_block": n_layers * n_batches,
+         "mlp_fused": 0},
+    )
+    vc, tc = runner.encoder.vision.cfg, runner.encoder.text.cfg
+    check((vc.seq_len, vc.d_model, vc.n_heads, vc.d_mlp, vc.n_layers) == (196, 768, 12, 3072, 12),
+          f"vision tower is not SigLIP ViT-B/16: {vc}")
+    check((tc.max_len, tc.d_model, tc.n_heads, tc.d_mlp, tc.n_layers, tc.vocab_size)
+          == (64, 768, 12, 3072, 12, 32000), f"text tower is not SigLIP-B: {tc}")
+    t0 = time.perf_counter()
+    cpu_emb = _cpu_embeddings(runner, CPU_CHECK_ITEMS)
+    cpu_s = time.perf_counter() - t0
+    cos_cpu = _half_cosines(emb[:CPU_CHECK_ITEMS], cpu_emb)
+    check(min(cos_cpu.values()) >= PRECOMPUTE_COS_MIN,
+          f"card embeddings against the CPU's: cosines {cos_cpu}")
+
+    # One batch on the card, already on the host: seconds per batch without
+    # the host's image generation, and where its time goes.
+    batch = next(runner._batches())
+    runner.encode_batch(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner.encode_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    profile = profile_call(lambda: runner.encode_batch(batch), top=12)
+
+    # (b) the same weights with the fused MLP in both towers.
+    fused_result, fused_runner, fused_emb, fused_counts, _ = _sweep(
+        dataclasses.replace(cfg, batch_size=FUSED_ITEMS), siglip, root / "fused",
+        FUSED_ITEMS,
+        {"masked_mha_fwd": n_layers, "attn_block": n_layers, "mlp_fused": 2 * n_layers},
+        mlp="fused", state_dict=runner.encoder.state_dict(),
+    )
+    cos_fused = _half_cosines(fused_emb, emb[:FUSED_ITEMS])
+    check(min(cos_fused.values()) >= FUSED_COS_MIN,
+          f"fused-MLP embeddings against the plain pass: cosines {cos_fused}")
+    fused_batch = next(fused_runner._batches())
+    fused_runner.encode_batch(fused_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_runner.encode_batch(fused_batch)
+    torch.cuda.synchronize()
+    fused_batch_s = time.perf_counter() - t0
+    del fused_runner
+
+    # (c) the CLIP pair: ViT-B/32 at L=50 and the causal text tower at L=77,
+    # both through masked_mha (the block's shape guard lets neither through).
+    clip = OutfitXConfig(item_encoder=dataclasses.replace(
+        ItemEncoderConfig.for_type("clip"), text_model_name="", text_max_length=77
+    ))
+    clip_result, clip_runner, clip_emb, clip_counts, _ = _sweep(
+        dataclasses.replace(cfg, batch_size=CLIP_ITEMS), clip, root / "clip", CLIP_ITEMS,
+        {"masked_mha_fwd": 2 * n_layers, "attn_block": 0, "mlp_fused": 0},
+    )
+    cvc, ctc = clip_runner.encoder.vision.cfg, clip_runner.encoder.text.cfg
+    check((cvc.seq_len, ctc.max_len, ctc.variant) == (50, 77, "clip"), "CLIP tower shapes")
+    cos_clip = _half_cosines(
+        clip_emb[:CPU_CHECK_ITEMS], _cpu_embeddings(clip_runner, CPU_CHECK_ITEMS)
+    )
+    check(min(cos_clip.values()) >= PRECOMPUTE_COS_MIN,
+          f"CLIP card embeddings against the CPU's: cosines {cos_clip}")
+
+    batch_s = float(np.mean(times))
+    emit({
+        "phase": "precompute",
+        "encoder": "siglip", "vision": "ViT-B/16, 196 tokens, d=768, 12 layers",
+        "text": "L=64, d=768, 12 layers, vocab 32000",
+        "items": result["items"], "batch": cfg.batch_size, "shards": result["shards"],
+        "sweep_s": result["seconds"], "sweep_items_per_s": result["items_per_sec"],
+        "launches": counts, "peak_memory_bytes": peak,
+        "batch_s_each": times, "batch_s": batch_s,
+        "batch_items_per_s": cfg.batch_size / batch_s,
+        "cpu_check_items": CPU_CHECK_ITEMS, "cpu_check_s": cpu_s,
+        "min_cosine_vs_cpu_f32": cos_cpu,
+        "fused_mlp": {
+            "items": fused_result["items"], "launches": fused_counts,
+            "batch_s": fused_batch_s, "batch_items_per_s": FUSED_ITEMS / fused_batch_s,
+            "min_cosine_vs_plain_mlp": cos_fused,
+            "max_abs_diff_vs_plain_mlp": float(np.abs(fused_emb - emb[:FUSED_ITEMS]).max()),
+        },
+        "clip": {
+            "items": clip_result["items"], "launches": clip_counts,
+            "min_cosine_vs_cpu_f32": cos_clip,
+        },
+        "batch_profile": profile,
+    })
+    return {
+        "masked_mha_fwd": counts["masked_mha_fwd"] + fused_counts["masked_mha_fwd"]
+        + clip_counts["masked_mha_fwd"],
+        "attn_block": counts["attn_block"] + fused_counts["attn_block"],
+        "mlp_fused": fused_counts["mlp_fused"],
+    }
+
+
 def _bwd_timing(shape):
     """masked_mha_bwd at one bf16 shape: kernel, plain version, and the
     backward of ``scaled_dot_product_attention`` with the bool mask, timed
@@ -726,6 +1126,83 @@ def _bwd_timing(shape):
         "bound_ms": bound,
         "bound_by": bound_by,
     }
+
+
+def _tower_timing():
+    """The three tower kernels in bfloat16 at the SigLIP towers' shapes at
+    batch 2048: kernel, plain version, the PyTorch library calls for the same
+    function, and the bound."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+    from outfitx_tpu_torch.ops.attn_block import _attn_block_cuda, attn_block_reference
+    from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
+
+    dt = torch.bfloat16
+    out = {}
+
+    shape = (2048, 12, 196, 64)  # the vision tower's attention
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
+    pad = torch.zeros((shape[0], shape[2]), dtype=torch.bool, device="cuda")
+    keep = ~pad[:, None, None, :]
+    bound, bound_by = attention_bound(shape, dt)
+    out["masked_mha_fwd"] = {
+        "shape": list(shape),
+        "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, False), 5),
+        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad), 3, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 5
+        ),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    del q, k, v
+
+    shape = ATTN_BLOCK_SHAPES[0]  # the text tower's block
+    y, wqkv, bqkv, wo, pad, h, causal = attn_block_inputs(shape, dt, seed=12)
+    b, l, d = y.shape
+    scale = 1.0 / math.sqrt(d // h)
+    w_in = wqkv.reshape(d, 3 * d).T.contiguous()
+    b_in = bqkv.reshape(3 * d)
+    wo_t = wo.T.contiguous()
+    keep = ~pad[:, None, None, :]
+
+    def block_library():
+        qkv = F.linear(y, w_in, b_in).view(b, l, 3, h, d // h).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=keep)
+        return F.linear(o.transpose(1, 2).reshape(b, l, d), wo_t)
+
+    bound, bound_by = attn_block_bound(shape, dt)
+    out["attn_block"] = {
+        "shape": list(shape[:4]),
+        "ms": cuda_ms(lambda: _attn_block_cuda(y, wqkv, bqkv, wo, pad, h, scale, causal), 5),
+        "plain_ms": cuda_ms(
+            lambda: attn_block_reference(y, wqkv, bqkv, wo, pad, h), 3, warmup=1
+        ),
+        "library_ms": cuda_ms(block_library, 5),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    del y
+
+    for name, rows in (("text", 2048 * 64), ("vision", 2048 * 196)):
+        shape = (rows, 768, 3072, "gelu_tanh")
+        x, w1, b1, w2, b2, act = mlp_inputs(shape, dt, seed=13)
+        w1t, w2t = w1.T.contiguous(), w2.T.contiguous()
+
+        def mlp_library():
+            return F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2)
+
+        bound, bound_by = mlp_bound(shape, dt)
+        out[f"mlp_fused_{name}"] = {
+            "shape": list(shape[:3]), "act": act,
+            "ms": cuda_ms(lambda: _mlp_fused_cuda(x, w1, b1, w2, b2, act), 3, warmup=1),
+            "plain_ms": cuda_ms(
+                lambda: mlp_fused_reference(x, w1, b1, w2, b2, act=act), 3, warmup=1
+            ),
+            "library_ms": cuda_ms(mlp_library, 5),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_timing(engine):
@@ -769,10 +1246,12 @@ def phase_timing(engine):
         engine.cp_score(outfit)
         lat.append((time.perf_counter() - t0) * 1e3)
     lat = np.asarray(lat[10:])
+    towers = _tower_timing()
     emit({
         "phase": "timing",
         "masked_mha_fwd": per_shape,
         "masked_mha_bwd": bwd,
+        "towers": towers,
         "cp_forward_b4096_ms": fwd_ms,
         "cp_forward_outfits_per_s": b / (fwd_ms / 1e3),
         "attention_share_of_cp_forward": (
@@ -783,7 +1262,7 @@ def phase_timing(engine):
         "cp_score_p99_ms": float(np.percentile(lat, 99)),
         "cp_score_samples": int(lat.size),
     })
-    return per_shape, bwd
+    return per_shape, bwd, towers
 
 
 def main() -> int:
@@ -802,24 +1281,38 @@ def main() -> int:
     max_err = phase_kernels()
     engine, serve_launches = phase_serve()
     train_launches = phase_train()
-    fwd, bwd = phase_timing(engine)
+    precompute_launches = phase_precompute()
+    fwd, bwd, towers = phase_timing(engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
             "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
+            "at_vision_tower": towers["masked_mha_fwd"],
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
             "at_b8": bwd[8],
         }),
+        ("attn_block", "outfitx_tpu/ops/attn_block.py:41", towers["attn_block"], {}),
+        ("mlp_fused", "outfitx_tpu/ops/mlp.py:38", towers["mlp_fused_vision"], {
+            "at_text_tower": towers["mlp_fused_text"],
+        }),
     ]
+    by_path = {
+        "serve": serve_launches, "train": train_launches,
+        "precompute": precompute_launches,
+    }
+    for name, *_ in rows:
+        check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()
+                  if name in counts) and any(name in c for c in by_path.values()),
+              f"{name} was not launched on a main path that runs it")
     emit({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": f"outfitx_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": serve_launches.get(name, 0) + train_launches[name],
+            "launches": sum(counts.get(name, 0) for counts in by_path.values()),
             "launches_by_path": {
-                "serve": serve_launches.get(name, 0), "train": train_launches[name],
+                path: counts.get(name, 0) for path, counts in by_path.items()
             },
             "max_abs_err": max_err[name],
             "ms": main["ms"],

@@ -2,12 +2,12 @@
 dataclasses, with the same defaults).
 
 Here: the item encoder (which fixes the embedding width), the set
-transformer, the top-level ``OutfitXConfig``, and the optimizer and CP, CIR
-and FITB training configs. ``MeshConfig`` and the training configs' ``mesh``
-field wait for the parallelism slice: the trainers run on one card. The
-JAX package's ``remat`` options are not ported (an 80 GB card holds the
-activations at the training envelope), nor ``async_saves`` (saves are
-synchronous) nor ``PrecomputeConfig``.
+transformer, the top-level ``OutfitXConfig``, the optimizer, the CP, CIR
+and FITB training configs and the precompute sweep's config. ``MeshConfig``
+and the training configs' ``mesh`` field wait for the parallelism slice: the
+trainers run on one card. The JAX package's ``remat`` options are not ported
+(an 80 GB card holds the activations at the training envelope), nor
+``async_saves`` (saves are synchronous).
 """
 
 from __future__ import annotations
@@ -170,3 +170,11 @@ class FITBTrainConfig(TrainConfig):
     )
     n_candidates: int = 4
     checkpoint_from: Optional[str] = None  # path to a CIR checkpoint
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecomputeConfig(TrainConfig):
+    """Catalog embedding-precompute sweep (batch 2048)."""
+
+    batch_size: int = 2048
+    shard_prefix: str = "embedding_subset_"

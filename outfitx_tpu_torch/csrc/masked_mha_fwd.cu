@@ -11,8 +11,11 @@
 //   O = P V                            float32 accumulation, written in the
 //                                      input dtype
 // Inputs: q, k, v, out contiguous (B, H, L, Dh) of float or bfloat16;
-// pad (B, L) of bytes (torch.bool), nonzero = pad. L <= 64, Dh <= 128 and a
-// multiple of 8, so every (b, h) slab is a whole number of 16-byte vectors.
+// pad (B, L) of bytes (torch.bool), nonzero = pad. Dh <= 128 and a multiple
+// of 8, so every (b, h) slab is a whole number of 16-byte vectors. L <= 64
+// takes the set-attention kernel below; 64 < L <= 256 (the frozen towers:
+// 196 patches, 77 causal text tokens) takes the query-tiled kernel at the end
+// of this file, which needs Dh a multiple of 16.
 //
 // What bounds it on an H100. The main serving path calls it at
 // (B, H, L, Dh) = (8, 16, 17, 96): 1.7 MB in and out, below a microsecond of
@@ -32,11 +35,30 @@
 // byte once and writes each output byte once, which is what the memory bound
 // asks for. Making it fast (several heads per block, mma.sync, fewer
 // shared-memory reads per FMA) is later work.
+//
+// Tower lengths (64 < L <= 256). Q, K, V widened to float32 plus the L x L
+// scores pass the 227 KB a block can have (about 307 KB at L = 196, Dh = 64),
+// so the long kernel tiles the QUERIES, 32 rows at a time. All L keys and
+// all L values of a (b, h) lie in shared memory in the input dtype and the
+// (32, L) float32 scores beside them; one block of 256 threads walks the
+// query tiles of its (b, h), so K and V are read once. Where K and V do not
+// both fit (float32 at the largest L and Dh) a block takes one query tile
+// and loads the values into the keys' place. Every key of a row is present, so the softmax is
+// the same one-pass max / exp / sum as above and P is rounded to the input
+// dtype before P V: no online softmax, same arithmetic as the short kernel.
+// The two products go through bg::block_gemm (block_gemm.cuh): wmma on the
+// tensor cores for bfloat16, scalar FMAs for float32. At (2048, 12, 196, 64)
+// in bf16 the function moves 2.47 GB (0.74 ms at 3.35 TB/s) against
+// 242 GFLOP (0.24 ms): bound by bytes. Each input byte is read once and each
+// output byte written once; the row softmax and the products' shared-memory
+// traffic, not the bytes, take most of the kernel's time (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "block_gemm.cuh"
 
 namespace {
 
@@ -203,6 +225,142 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- 64 < L <= 256: query-tiled --------------------------------------------
+
+constexpr int kLongThreads = 256;
+constexpr int kQTile = 32;
+
+// The most dynamic shared memory a block can have on sm_90.
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// Shared-memory layout of the long kernel, used by the kernel and by the
+// launch: K (Lp, Dh + pad) of T; V the same, in a buffer of its own where
+// both fit (`resident`), else in K's place once the scores are formed; Q
+// (kQTile, Dh + pad) of T, later the float32 output tile in the same place;
+// scores (kQTile, Lp + pad) float32; P (kQTile, Lp + pad) of T, which for
+// float is the score buffer.
+template <typename T>
+struct LongLayout {
+  int lp, ldt, lds;
+  bool resident;
+  size_t k, v, qo, s, p, total;
+  __host__ __device__ LongLayout(int L, int Dh) {
+    lp = bg::round16(L);
+    ldt = Dh + bg::kRowPad;
+    lds = lp + bg::kRowPad;
+    const size_t slab = bg::align128(sizeof(T) * lp * ldt);
+    const size_t rest =
+        bg::align128(sizeof(float) * kQTile * ldt) +
+        bg::align128(sizeof(float) * kQTile * lds) +
+        (sizeof(T) == sizeof(float) ? 0 : bg::align128(sizeof(T) * kQTile * lds));
+    resident = 2 * slab + rest <= kMaxSmem;
+    k = 0;
+    v = resident ? slab : 0;
+    qo = v + slab;
+    s = qo + bg::align128(sizeof(float) * kQTile * ldt);
+    p = s + bg::align128(sizeof(float) * kQTile * lds);
+    total = qo + rest;
+  }
+};
+
+// With K and V resident a block takes every query tile of its (b, h) in
+// turn and reads K and V once; otherwise a block takes one query tile and
+// loads K, then V in its place.
+template <typename T>
+__global__ void __launch_bounds__(kLongThreads)
+    masked_mha_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const uint8_t* __restrict__ pad,
+                               T* __restrict__ out, int H, int L, int Dh,
+                               float scale, int causal) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const LongLayout<T> lay(L, Dh);
+  T* sk = reinterpret_cast<T*>(smem + lay.k);
+  T* sv = reinterpret_cast<T*>(smem + lay.v);
+  T* sq = reinterpret_cast<T*>(smem + lay.qo);
+  float* so = reinterpret_cast<float*>(smem + lay.qo);
+  float* ss = reinterpret_cast<float*>(smem + lay.s);
+  T* sp = sizeof(T) == sizeof(float) ? reinterpret_cast<T*>(smem + lay.s)
+                                     : reinterpret_cast<T*>(smem + lay.p);
+
+  const int q_tiles = (L + kQTile - 1) / kQTile;
+  const int bh = lay.resident ? blockIdx.x : blockIdx.x / q_tiles;
+  const int first = lay.resident ? 0 : blockIdx.x - bh * q_tiles;
+  const int last = lay.resident ? q_tiles : first + 1;
+  const int b = bh / H;
+  const size_t base = static_cast<size_t>(bh) * L * Dh;
+  const uint8_t* prow = pad + static_cast<size_t>(b) * L;
+  const int warp = threadIdx.x / 32;
+
+  if (lay.resident) {
+    bg::load_tile(sk, lay.ldt, k + base, Dh, L, lay.lp, Dh);
+    bg::load_tile(sv, lay.ldt, v + base, Dh, L, lay.lp, Dh);
+  }
+  for (int tile = first; tile < last; ++tile) {
+    const int q0 = tile * kQTile;
+    const int nq = min(kQTile, L - q0);
+    bg::load_tile(sq, lay.ldt, q + base + static_cast<size_t>(q0) * Dh, Dh, nq,
+                  kQTile, Dh);
+    if (!lay.resident) bg::load_tile(sk, lay.ldt, k + base, Dh, L, lay.lp, Dh);
+    __syncthreads();
+    // S = Q K^T: K is stored (L, Dh), the product's B read column-major.
+    bg::block_gemm<true, 2>(ss, lay.lds, sq, lay.ldt, sk, lay.ldt, kQTile,
+                            lay.lp, Dh, false);
+    __syncthreads();
+    // Not resident: the keys are done with, the values take their place.
+    if (!lay.resident) bg::load_tile(sv, lay.ldt, v + base, Dh, L, lay.lp, Dh);
+    for (int i = warp; i < kQTile; i += kLongThreads / 32) {
+      if (i < nq)
+        bg::softmax_row<T>(ss + i * lay.lds, sp + i * lay.lds, prow, L, lay.lp,
+                           q0 + i, scale, causal);
+      else
+        bg::zero_row<T>(sp + i * lay.lds, lay.lp);
+    }
+    __syncthreads();
+    // O = P V into the place Q had.
+    bg::block_gemm<false, 1>(so, lay.ldt, sp, lay.lds, sv, lay.ldt, kQTile, Dh,
+                             lay.lp, false);
+    __syncthreads();
+    for (int e = threadIdx.x; e < nq * Dh; e += kLongThreads) {
+      const int i = e / Dh;
+      const int d = e - i * Dh;
+      out[base + static_cast<size_t>(q0 + i) * Dh + d] =
+          bg::from_f32<T>(so[i * lay.ldt + d]);
+    }
+    // The next tile's Q goes where this tile's output lies.
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t launch_long(const void* q, const void* k, const void* v,
+                        const void* pad, void* out, int B, int H, int L,
+                        int Dh, int causal, cudaStream_t stream) {
+  const LongLayout<T> lay(L, Dh);
+  const cudaError_t err = cudaFuncSetAttribute(
+      masked_mha_fwd_long_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lay.total));
+  if (err != cudaSuccess) return err;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
+  const int q_tiles = (L + kQTile - 1) / kQTile;
+  const int blocks = B * H * (lay.resident ? 1 : q_tiles);
+  masked_mha_fwd_long_kernel<T><<<blocks, kLongThreads, lay.total, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
+      static_cast<T*>(out), H, L, Dh, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* pad, void* out, int B, int H, int L, int Dh,
+                     int causal, cudaStream_t stream) {
+  if (L <= 64) return launch<T>(q, k, v, pad, out, B, H, L, Dh, causal, stream);
+  if (L > 256 || Dh % 16) return cudaErrorInvalidValue;
+  return launch_long<T>(q, k, v, pad, out, B, H, L, Dh, causal, stream);
+}
+
 }  // namespace
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
@@ -211,8 +369,8 @@ extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                               const void* pad, void* out, int B, int H, int L,
                               int Dh, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, pad, out, B, H, L, Dh, causal, s);
+  if (dtype == 0) return dispatch<float>(q, k, v, pad, out, B, H, L, Dh, causal, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
+    return dispatch<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,6 +9,8 @@ holding ``leaf_{i}`` byte buffers, ``tree.json`` holding the tree and each
 leaf's shape and dtype) with numpy alone. ``jax_params_from_state_dict``
 is the inverse of ``state_dict_from_jax``: the port's checkpoints store
 parameters in the JAX tree layout (``train/checkpoint.py``).
+``item_encoder_state_dict_from_jax`` maps the item encoder's tower trees
+(clip and siglip) onto ``ItemEncoderModel``'s state dict.
 """
 
 from __future__ import annotations
@@ -118,6 +120,67 @@ def jax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             "bias": f32(sd["transformer_encoder.norm.bias"]),
         }
     return params
+
+
+def _linear_from_jax(sd, prefix: str, p) -> None:
+    """A JAX ``linear`` ({'w': (d_in, d_out)[, 'b']}) as an ``nn.Linear``."""
+    sd[prefix + ".weight"] = _f32(p["w"]).T.contiguous()
+    if "b" in p:
+        sd[prefix + ".bias"] = _f32(p["b"])
+
+
+def _ln_from_jax(sd, prefix: str, p) -> None:
+    sd[prefix + ".weight"] = _f32(p["scale"])
+    sd[prefix + ".bias"] = _f32(p["bias"])
+
+
+def _encoder_from_jax(sd, prefix: str, layers) -> None:
+    """The JAX towers hold every layer stacked along a leading ``n_layers``
+    axis; the port holds a list of layers."""
+    n_layers = np.shape(layers["ln1"]["scale"])[0]
+
+    def at(tree, i):
+        return {k: v[i] for k, v in tree.items()}
+
+    for i in range(n_layers):
+        lp = f"{prefix}.layers.{i}"
+        _ln_from_jax(sd, f"{lp}.ln1", at(layers["ln1"], i))
+        _ln_from_jax(sd, f"{lp}.ln2", at(layers["ln2"], i))
+        for name in ("q", "k", "v", "o"):
+            _linear_from_jax(sd, f"{lp}.{name}", at(layers["attn"][name], i))
+        for name in ("fc1", "fc2"):
+            _linear_from_jax(sd, f"{lp}.{name}", at(layers["mlp"][name], i))
+
+
+def item_encoder_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``ItemEncoderModel`` parameter tree ({'vision', 'text'} of
+    the clip or siglip towers, numpy arrays) onto the port's
+    ``ItemEncoderModel`` state dict, in float32: the layer stack is split
+    per layer and every ``linear`` weight transposed to (out, in)."""
+    sd: Dict[str, torch.Tensor] = {}
+    vis, txt = params["vision"], params["text"]
+    _linear_from_jax(sd, "vision.patch", vis["patch"])
+    sd["vision.pos_emb"] = _f32(vis["pos_emb"])
+    _encoder_from_jax(sd, "vision.encoder", vis["layers"])
+    _ln_from_jax(sd, "vision.post_ln", vis["post_ln"])
+    if "cls" in vis:  # clip
+        sd["vision.cls"] = _f32(vis["cls"])
+        _ln_from_jax(sd, "vision.pre_ln", vis["pre_ln"])
+        _linear_from_jax(sd, "vision.proj", vis["proj"])
+    else:  # siglip: the attention-pooling head
+        mp = vis["map"]
+        sd["vision.map.probe"] = _f32(mp["probe"])
+        for name in ("q", "k", "v", "o"):
+            _linear_from_jax(sd, f"vision.map.{name}", mp["attn"][name])
+        _ln_from_jax(sd, "vision.map.ln", mp["ln"])
+        for name in ("fc1", "fc2"):
+            _linear_from_jax(sd, f"vision.map.{name}", mp["mlp"][name])
+    sd["text.tok_emb"] = _f32(txt["tok_emb"])
+    sd["text.pos_emb"] = _f32(txt["pos_emb"])
+    _encoder_from_jax(sd, "text.encoder", txt["layers"])
+    _ln_from_jax(sd, "text.final_ln", txt["final_ln"])
+    _linear_from_jax(sd, "text.proj", txt["proj"])
+    return sd
 
 
 def _read_leaf(buf: np.ndarray, dtype: str, shape) -> Any:

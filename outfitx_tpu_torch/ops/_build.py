@@ -7,9 +7,9 @@ plain C interface::
          -Xcompiler -fPIC -o build/outfitx_tpu_torch/lib<name>-<hash>.so
 
 under the checkout's ``build/`` directory (git-ignored). The file name
-carries a hash of the source, so an edited kernel is rebuilt and a built one
-is reused. Nothing is built at import: the first launch builds, or a caller
-builds ahead with ``build``.
+carries a hash of the source and of the headers beside it (``csrc/*.cuh``),
+so an edited kernel is rebuilt and a built one is reused. Nothing is built
+at import: the first launch builds, or a caller builds ahead with ``build``.
 """
 
 from __future__ import annotations
@@ -45,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

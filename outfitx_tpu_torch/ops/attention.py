@@ -1,8 +1,11 @@
 """Masked multi-head set attention, forward and backward.
 
 Inputs are (B, H, L, Dh) with a (B, L) bool key-padding mask (True = pad).
-Outfits are at most 16 items + 1 prefix token, so this is attention over
-tiny sequences: the whole (L, L) score block fits on chip.
+Outfits are at most 16 items + 1 prefix token, so the set transformer's
+attention runs over tiny sequences: the whole (L, L) score block fits on
+chip. The frozen towers call the forward at 50, 77 (causal) and 196 tokens:
+above 64 the forward kernel tiles the queries (up to 256 tokens). The towers
+take no gradient, so the backward kernel keeps L <= 64.
 
 ``masked_mha`` is differentiable through ``MaskedMHA``, a
 ``torch.autograd.Function`` that saves q, k, v and the mask (the JAX custom
@@ -21,13 +24,15 @@ import ctypes
 
 import torch
 
-from outfitx_tpu_torch.ops import _build
+# The tests patch the kernel loader through this module's _build.
+from outfitx_tpu_torch.ops import _build, _launch  # noqa: F401
 
 _NEG = -1e9
 _FWD = "masked_mha_fwd"
 _BWD = "masked_mha_bwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_L = 64
+_DTYPE_CODES = _launch.DTYPE_CODES
+MAX_L = 256  # forward; above SHORT_L the query-tiled kernel
+SHORT_L = 64  # the one-block-per-(b, h) kernels: forward below, backward always
 MAX_DH = 128
 
 
@@ -92,10 +97,17 @@ def _check(q, k, v, pad_mask, g=None):
         raise ValueError(f"pad_mask must be bool (B, L) = {(b, l)}")
     if pad_mask.device != q.device:
         raise ValueError("pad_mask must lie on the same device as q")
-    if not 1 <= l <= MAX_L or not 8 <= dh <= MAX_DH or dh % 8:
+    max_l = MAX_L if g is None else SHORT_L
+    if not 1 <= l <= max_l or not 8 <= dh <= MAX_DH or dh % 8:
         raise ValueError(
-            f"masked_mha kernel takes 1 <= L <= {MAX_L} and Dh a multiple of "
-            f"8 up to {MAX_DH}, got L={l}, Dh={dh}"
+            f"masked_mha {'forward' if g is None else 'backward'} kernel takes "
+            f"1 <= L <= {max_l} and Dh a multiple of 8 up to {MAX_DH}, got "
+            f"L={l}, Dh={dh}"
+        )
+    if l > SHORT_L and dh % 16:
+        raise ValueError(
+            f"masked_mha kernel above L={SHORT_L} takes Dh a multiple of 16, "
+            f"got L={l}, Dh={dh}"
         )
     tensors = {"q": q, **same}
     for name, t in {**tensors, "pad_mask": pad_mask}.items():
@@ -107,10 +119,9 @@ def _check(q, k, v, pad_mask, g=None):
 
 
 def _bind(name: str, n_ptrs: int):
-    fn = getattr(_build.load(name), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.bind(
+        name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
 
 
 def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):

@@ -58,6 +58,22 @@ def test_masked_mha_matches_jax(l, causal):
     np.testing.assert_allclose(got, want_ref, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("l, causal", [(50, False), (77, True), (196, False)])
+def test_masked_mha_matches_jax_at_tower_lengths(l, causal):
+    """The frozen towers' lengths: ViT-B/32 (50), CLIP text (77, causal) and
+    SigLIP ViT-B/16 (196), against the route the JAX towers take (``auto``:
+    the direct kernel up to 128, the padded kernel above) and the JAX
+    reference."""
+    q, k, v, pad = _inputs(2, 2, l, 16, seed=l)
+    jq, jk, jv, jpad = (jnp.asarray(a) for a in (q, k, v, pad))
+    want_auto = np.asarray(jax_masked_mha(jq, jk, jv, jpad, causal=causal))
+    want_ref = np.asarray(_mha_reference(jq, jk, jv, jpad, causal=causal))
+    got = masked_mha(*_torch(q, k, v, pad), causal=causal).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_auto, rtol=0, atol=TOL)
+    np.testing.assert_allclose(got, want_ref, rtol=0, atol=TOL)
+
+
 def test_fully_masked_row_is_uniform():
     q, k, v, pad = _inputs(3, 2, 9, 8)
     got = masked_mha(*_torch(q, k, v, pad)).numpy()
@@ -107,7 +123,8 @@ def test_kernel_branch_swallows_no_error(monkeypatch):
     "shape, dtype, error",
     [
         ((2, 2, 9, 12), torch.float32, ValueError),  # Dh not a multiple of 8
-        ((2, 2, 65, 16), torch.float32, ValueError),  # L above 64
+        ((2, 2, 257, 16), torch.float32, ValueError),  # L above 256
+        ((2, 2, 65, 24), torch.float32, ValueError),  # above L=64: Dh % 16
         ((2, 2, 9, 136), torch.float32, ValueError),  # Dh above 128
         ((2, 2, 9, 16), torch.float16, TypeError),  # dtype the kernel lacks
     ],
@@ -134,6 +151,35 @@ def test_kernel_wrapper_rejects_noncontiguous(monkeypatch):
     pad = torch.zeros(2, 9, dtype=torch.bool)
     with pytest.raises(ValueError, match="contiguous"):
         masked_mha(q, q, q, pad)
+
+
+def test_forward_wrapper_takes_tower_lengths(monkeypatch):
+    """L up to 256 passes the wrapper's checks and reaches the kernel's
+    loader (stubbed here: the CPU tests have no compiler)."""
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        raise RuntimeError("no compiler here")
+
+    monkeypatch.setattr(attention, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(attention._build, "load", load)
+    for l in (65, 196, 256):
+        q = torch.zeros((2, 2, l, 64))
+        with pytest.raises(RuntimeError, match="no compiler here"):
+            masked_mha(q, q.clone(), q.clone(), torch.zeros(2, l, dtype=torch.bool))
+    assert loaded == ["masked_mha_fwd"] * 3
+
+
+def test_backward_kernel_keeps_l_at_most_64(monkeypatch):
+    """The towers are frozen: above L=64 the backward raises on the card."""
+    monkeypatch.setattr(
+        attention._build, "load", lambda name: pytest.fail("kernel was loaded")
+    )
+    q = torch.zeros((2, 2, 65, 16))
+    pad = torch.zeros(2, 65, dtype=torch.bool)
+    with pytest.raises(ValueError, match="backward kernel takes 1 <= L <= 64"):
+        _masked_mha_bwd_cuda(q, q.clone(), q.clone(), pad, q.clone(), False)
 
 
 def _cotangent(q, seed=1):

@@ -33,7 +33,7 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    for name in ("masked_mha_fwd", "masked_mha_bwd"):
+    for name in ("masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused"):
         assert (ROOT / "outfitx_tpu_torch" / "csrc" / f"{name}.cu").is_file()
 
 
@@ -57,6 +57,28 @@ def test_importing_the_whole_port_loads_no_jax():
         "assert not added, added\n"
         "print('ok', len([m for m in sys.modules if m.startswith('outfitx_tpu_torch')]))\n"
     ) % (FORBIDDEN,)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_importing_the_whole_port_loads_no_pil_and_no_transformers():
+    """The card's machine has no PIL, and tokenizer files are optional: both
+    are imported inside the functions that need them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import outfitx_tpu_torch\n"
+        "for m in pkgutil.walk_packages(outfitx_tpu_torch.__path__, 'outfitx_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'transformers'))\n"
+        "assert not bad, bad\n"
+        "assert 'outfitx_tpu_torch.train.precompute' in sys.modules\n"
+        "print('ok')\n"
+    )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=300,
