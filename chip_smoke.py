@@ -6,17 +6,20 @@
 Phases, each printing one JSON line:
 1. env      torch and CUDA versions, the card's name and power limit;
 2. build    compile every CUDA kernel (forward and backward attention, the
-            fused attention block, the fused tower MLP) with nvcc for
-            sm_90a, one process per source, all started together;
+            fused attention block, the fused tower MLP, LayerNorm) with nvcc
+            for sm_90a, one process per source, all started together;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the set transformer's shapes and at the towers' (attention at
             L=196, 50, 77 causal and 256; attn_block at the SigLIP text
-            tower's 2048x64x768; mlp_fused at 131072x768x3072);
+            tower's 2048x64x768; mlp_fused at 131072x768x3072; layernorm at
+            136, 69,632 and 401,408 rows, ragged widths, constant and 1e4
+            rows, and its closed-form backward against autograd);
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
-            are checked, and the answers are held against the same engine on
-            the CPU in float32;
+            are checked (6 attention and 12 LayerNorm launches a forward),
+            and the answers are held against the same engine on the CPU in
+            float32;
 5. train    (a) one CP train step at full width (B=64, A=2, bf16) against
             the same step on the CPU in float32 from the same weights;
             (b) ``CPTrainer`` at the reference envelope (B=3072, A=4,
@@ -36,7 +39,20 @@ Phases, each printing one JSON line:
             fused MLP in both towers against the first pass; one small batch
             of the CLIP pair (L=50 and causal L=77); items/s, seconds per
             batch, peak memory and a profile of one batch by kernel kind;
-7. timing   kernel, plain version and the PyTorch library call at the
+7. http     ``serve()`` at full width in a thread, spare rows and the three
+            coalescers on: concurrent clients on /api/cp, /api/cir,
+            /api/similar, /api/fitb and /api/cp_batch against the engine's
+            direct answers, fewer batched calls than requests; a live update
+            and an append over HTTP that the next request sees, no sentinel
+            row returned; whole-catalog CIR requests racing updates; the
+            stats and OpenAPI routes; exact launch counts; an age drain that
+            lets an in-flight request finish and ends with exit code 81;
+8. retrieval  300,000 items x 1536 (above the default chunk threshold):
+            top-10 neighbours of 8 items by the dense, chunked, int8 and
+            int8-chunked routes (chunked equals dense, int8 overlaps it),
+            each route's ms and peak memory, ``torch.topk`` alone, and a
+            live update of 1,500 rows against a full requantisation;
+9. timing   kernel, plain version and the PyTorch library call at the
             serving bucket (B=8), the training and throughput shapes and
             the towers' shapes at batch 2048; the CP forward's outfits/s at
             B=4096 and the cp_score latency.
@@ -114,7 +130,21 @@ MLP_SHAPES = [
     (131072, 768, 3072, "gelu_tanh"), (4096, 512, 2048, "quick_gelu"),
     (1000, 64, 96, "gelu"),
 ]
-KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused"]
+# layernorm ((rows..., d), eps): the serving bucket's and the B=4096 set
+# transformer's rows, the vision tower's rows with SigLIP's eps, a narrow
+# width, widths that are no multiple of the vector width (the scalar kernel,
+# in bfloat16 also d=100), a 3-D input, and a d above the register kernel's.
+LAYERNORM_SHAPES = [
+    ((136, 1536), 1e-5), ((69632, 1536), 1e-5), ((401408, 768), 1e-6),
+    ((1000, 96), 1e-5), ((257, 100), 1e-5), ((33, 1531), 1e-5),
+    ((8, 17, 1536), 1e-5), ((5, 4096), 1e-5),
+]
+# The bound shapes of the timing phase: B=4096 and B=3072 set-transformer
+# rows, the vision and the text tower's rows at batch 2048.
+LAYERNORM_TIMING_SHAPES = [
+    (69632, 1536), (52224, 1536), (401408, 768), (131072, 768), (136, 1536),
+]
+KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"]
 # Precompute: the JAX CLI's default synthetic catalog and PrecomputeConfig's
 # batch; the fused-MLP pass and the CLIP pair run one smaller sweep each.
 PRECOMPUTE_ITEMS = 4096
@@ -123,6 +153,21 @@ CLIP_ITEMS = 64
 CPU_CHECK_ITEMS = 32
 # The backward is also held at the training envelope's microbatch.
 BWD_SHAPES = KERNEL_SHAPES + [(3072, 16, 17, 96)]
+
+# The http phase: serve() with spare rows and the three coalescers on, its
+# clients, the age after which the replica drains (the phase's checks must
+# finish before it), and the tolerances against the engine's direct answers.
+HTTP_SPARE_ROWS = 64
+HTTP_COALESCE_MS = 3.0
+HTTP_CLIENTS = 8
+HTTP_AGE_S = 15.0
+HTTP_CP_TOL = 5e-3
+HTTP_OVERLAP_MIN = 0.9
+# The retrieval phase: a catalog above the default chunk threshold (262,144).
+RETRIEVAL_ITEMS = 300_000
+RETRIEVAL_QUERIES = 8
+RETRIEVAL_UPDATE_ROWS = 1500
+INT8_OVERLAP_MIN = 0.9
 
 # Training: the reference envelope (CP: B=3072 per microbatch, A=4) for 3
 # optimizer steps; CIR at its default B=512, A=1 for 2 steps.
@@ -177,6 +222,7 @@ KERNEL_KINDS = (
     ("masked_mha_bwd", ("masked_mha_bwd",)),
     ("attn_block", ("attn_block",)),
     ("mlp_fused", ("mlp_fused",)),
+    ("layernorm", ("layernorm_",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("random", ("distribution", "philox", "random")),
     ("reduce", ("reduce_kernel",)),
@@ -324,6 +370,28 @@ def mlp_bound(shape, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def layernorm_inputs(shape, dtype, seed: int):
+    """x ~ N(0.5, 2) of ``shape``; weight 1 + 0.1 N(0, 1) and bias 0.1 N(0, 1)
+    in float32, as the models keep them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    weight = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    return x, weight, bias
+
+
+def layernorm_bound(shape, dtype):
+    """Least time (ms): x read and the output written once, the two float32
+    parameters read once; about 8 float32 operations an element."""
+    n = math.prod(shape)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * n * elem + 2 * shape[-1] * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * n / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_env():
     smi = nvidia_smi_line()
     emit({
@@ -432,6 +500,79 @@ def _tower_kernel_checks():
     return mha_cases, block_cases, mlp_cases
 
 
+def _layernorm_checks():
+    """layernorm against its plain version on the card, float32 and
+    bfloat16; constant and 1e4 rows; the closed-form backward against
+    autograd through the plain version."""
+    from outfitx_tpu_torch.ops.layernorm import (
+        LayerNormFn,
+        _layer_norm_cuda,
+        layer_norm_bwd_reference,
+        layer_norm_reference,
+    )
+
+    cases = []
+    for si, (shape, eps) in enumerate(LAYERNORM_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weight, bias = layernorm_inputs(shape, dtype, seed=50 + si)
+            got = _layer_norm_cuda(x, weight, bias, eps)
+            ref = layer_norm_reference(x, weight, bias, eps)
+            torch.cuda.synchronize()
+            tag = {"shape": list(shape), "eps": eps, "dtype": _dtype_name(dtype)}
+            check(got.dtype == dtype and got.shape == x.shape,
+                  f"layernorm output {got.dtype} {tuple(got.shape)} at {tag}")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"non-finite layernorm output at {tag}")
+            err, ok = _compare(got, ref, dtype)
+            case = {**tag, "max_abs_err": err, "ok": ok}
+            cases.append(case)
+            check(ok, f"layernorm disagrees with its plain version: {case}")
+            del x, got, ref
+    torch.cuda.empty_cache()
+
+    # Rows of one value (variance 0) give exactly the bias; a row around the
+    # catalog's spare-row sentinel, 1e4, stays finite in bfloat16.
+    special = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1536, 100):
+            x, weight, bias = layernorm_inputs((8, d), dtype, seed=60)
+            x[0], x[1], x[2], x[3] = 0.5, 1.0e4, 0.0, -2.5
+            x[4] = (1.0e4 + torch.randn(d, device="cuda")).to(dtype)
+            got = _layer_norm_cuda(x, weight, bias, 1e-5)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(got[r], bias.to(dtype)) for r in range(4))
+            finite = bool(torch.isfinite(got.float()).all())
+            special.append({"dtype": _dtype_name(dtype), "d": d,
+                            "constant_rows_equal_bias": exact, "finite": finite})
+            check(exact, f"layernorm of a constant row is not the bias: {special[-1]}")
+            check(finite, f"layernorm of a 1e4 row is not finite: {special[-1]}")
+
+    # The closed form against autograd through the plain version, and the
+    # autograd.Function end to end (kernel forward, closed-form backward).
+    bwd = []
+    for dtype, eps in ((torch.float32, 1e-5), (torch.bfloat16, 1e-6)):
+        x, weight, bias = layernorm_inputs((64, 17, 1536), dtype, seed=70)
+        g = torch.randn(x.shape, device="cuda").to(dtype)
+        xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, weight, bias))
+        want = torch.autograd.grad(layer_norm_reference(xr, wr, br, eps), (xr, wr, br), g)
+        closed = layer_norm_bwd_reference(x, weight, bias, g, eps)
+        xf, wf, bf = (t.detach().clone().requires_grad_() for t in (x, weight, bias))
+        through = torch.autograd.grad(LayerNormFn.apply(xf, wf, bf, eps), (xf, wf, bf), g)
+        torch.cuda.synchronize()
+        case = {"shape": list(x.shape), "eps": eps, "dtype": _dtype_name(dtype)}
+        for name, a, f, r in zip(("dx", "dweight", "dbias"), closed, through, want):
+            # dweight and dbias are float32 sums over 1,088 rows in another
+            # order than autograd's: relative 1e-4 of the largest entry.
+            tol = 1e-4 * float(r.float().abs().max()) if name != "dx" else None
+            for label, t in (("closed", a), ("function", f)):
+                err = float((t.float() - r.float()).abs().max())
+                ok = err <= tol if tol is not None else _compare(t, r, dtype, 1e-4)[1]
+                case[f"{name}_{label}_max_abs_err"] = err
+                check(ok, f"layernorm backward {name} ({label}) off by {err}: {case}")
+        bwd.append(case)
+    return cases, special, bwd
+
+
 def phase_kernels():
     from outfitx_tpu_torch.ops.attention import (
         _masked_mha_bwd_cuda,
@@ -476,10 +617,12 @@ def phase_kernels():
         check(case["masked_keys_zero"], f"masked_mha_bwd: masked keys not zero: {case}")
     tower_mha, block_cases, mlp_cases = _tower_kernel_checks()
     fwd_cases += tower_mha
+    ln_cases, ln_special, ln_bwd = _layernorm_checks()
     emit({
         "phase": "kernels", "masked_mha_fwd": fwd_cases,
         "masked_mha_bwd": bwd_cases, "attn_block": block_cases,
-        "mlp_fused": mlp_cases,
+        "mlp_fused": mlp_cases, "layernorm": ln_cases,
+        "layernorm_special_rows": ln_special, "layernorm_backward": ln_bwd,
     })
 
     def main_err(cases, shape):
@@ -498,6 +641,10 @@ def phase_kernels():
         "mlp_fused": next(
             c["max_abs_err"] for c in mlp_cases
             if c["shape"] == list(MLP_SHAPES[0][:3]) and c["dtype"] == "bfloat16"
+        ),
+        "layernorm": next(
+            c["max_abs_err"] for c in ln_cases
+            if c["shape"] == list(LAYERNORM_SHAPES[0][0]) and c["dtype"] == "bfloat16"
         ),
     }
 
@@ -555,9 +702,17 @@ def _expected_forwards(engine, reqs):
     )
 
 
+def _ln_per_forward(cfg) -> int:
+    """LayerNorms of one set-transformer forward: two a layer (pre-LN), and
+    the terminal one where the configuration has it."""
+    t = cfg.transformer
+    return 2 * t.n_layers + (1 if t.final_norm else 0)
+
+
 def phase_serve():
     from outfitx_tpu_torch.core.config import OutfitXConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
     from outfitx_tpu_torch.serve.app import build_engine
 
     cfg = OutfitXConfig()
@@ -576,18 +731,21 @@ def phase_serve():
         eng.pools.pools.pop(0)
     reqs = _requests(gpu.catalog, np.random.default_rng(1))
 
-    masked_mha.launches = 0
+    masked_mha.launches = layer_norm.launches = 0
     t0 = time.perf_counter()
     got = _serve(gpu, reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = masked_mha.launches
+    launches, ln_launches = masked_mha.launches, layer_norm.launches
 
     forwards = _expected_forwards(gpu, reqs)
     n_layers = cfg.transformer.n_layers
     check(launches == n_layers * forwards,
           f"masked_mha_fwd launched {launches} times for {forwards} forwards "
           f"of {n_layers} layers")
+    check(ln_launches == _ln_per_forward(cfg) * forwards,
+          f"layernorm launched {ln_launches} times for {forwards} forwards "
+          f"of {_ln_per_forward(cfg)} LayerNorms")
     want = _serve(cpu, reqs)
 
     cp_got = np.asarray(got["cp"] + got["cp_batch"])
@@ -629,11 +787,12 @@ def phase_serve():
         "pool_size": gpu.pools.pool_size,
         "engine_build_s": build_s, "requests_s": serve_s,
         "forwards": forwards, "masked_mha_launches": launches,
+        "layernorm_launches": ln_launches,
         "cp_prob_max_abs_err": cp_err, "cir_requests": len(cir_got),
         "cir_top1_agree": top1, "cir_top1_worst_rel_gap": worst_gap,
         "fitb_agree": fitb, "similar_overlap": overlap,
     })
-    return gpu, {"masked_mha_fwd": launches}
+    return gpu, {"masked_mha_fwd": launches, "layernorm": ln_launches}
 
 
 def _cp_step_grads(model, catalog, split, device):
@@ -702,20 +861,22 @@ def _logged(log_dir, run_name, split):
     return [r for r in recs if r["split"] == split]
 
 
-def _expected_launches(n_layers, trainer, steps):
-    """(forward, backward) launches of ``steps`` train steps and one
-    validation sweep over the trainer's staged eval batches."""
+def _expected_launches(cfg, trainer, steps):
+    """(attention forward, attention backward, layernorm) launches of
+    ``steps`` train steps and one validation sweep over the trainer's staged
+    eval batches. LayerNorm's backward is the closed form in plain torch, so
+    only forwards launch its kernel."""
+    n_layers = cfg.transformer.n_layers
     micro = trainer.cfg.accumulation_steps * steps
-    return (
-        n_layers * (micro + len(trainer._eval_batches)),
-        n_layers * micro,
-    )
+    forwards = micro + len(trainer._eval_batches)
+    return (n_layers * forwards, n_layers * micro, _ln_per_forward(cfg) * forwards)
 
 
 def _cp_trainer_run(cfg, data, root):
     """(b): CPTrainer at the reference envelope."""
     from outfitx_tpu_torch.core.config import CPTrainConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
     from outfitx_tpu_torch.train.cp_trainer import CPTrainer
 
     tcfg = CPTrainConfig(
@@ -730,15 +891,14 @@ def _cp_trainer_run(cfg, data, root):
         before = {n: p.detach().clone() for n, p in t.model.named_parameters()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        masked_mha.launches = masked_mha.bwd_launches = 0
+        masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
         t0 = time.perf_counter()
         valid = t.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = (masked_mha.launches, masked_mha.bwd_launches)
+        launches = (masked_mha.launches, masked_mha.bwd_launches, layer_norm.launches)
         peak = torch.cuda.max_memory_allocated()
-        n_layers = cfg.transformer.n_layers
-        want = _expected_launches(n_layers, t, TRAIN_STEPS)
+        want = _expected_launches(cfg, t, TRAIN_STEPS)
         check(t.state.step == TRAIN_STEPS, f"CPTrainer took {t.state.step} steps")
         check(launches == want, f"CPTrainer launches {launches}, expected {want}")
         on_path = [n for n, p in t.model.named_parameters() if p.grad is not None]
@@ -764,6 +924,7 @@ def _cp_trainer_run(cfg, data, root):
         "train_loss": train[-1]["loss"], "valid": valid,
         "masked_mha_fwd_launches": launches[0],
         "masked_mha_bwd_launches": launches[1],
+        "layernorm_launches": launches[2],
         "peak_memory_bytes": peak, "params_on_path": len(on_path),
         "checkpoint": "final round-trips",
     }
@@ -773,6 +934,7 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
     """(c): CIRTrainer warm-started from the CP trainer's final checkpoint."""
     from outfitx_tpu_torch.core.config import CIRTrainConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
     from outfitx_tpu_torch.train.cir_trainer import CIRTrainer
 
     tcfg = CIRTrainConfig(
@@ -789,13 +951,13 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
         warm = t.model.state_dict()
         check(all(torch.equal(warm[n], cp_params[n]) for n in cp_params),
               "CIR warm start differs from the CP checkpoint")
-        masked_mha.launches = masked_mha.bwd_launches = 0
+        masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
         t0 = time.perf_counter()
         valid = t.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = (masked_mha.launches, masked_mha.bwd_launches)
-        want = _expected_launches(cfg.transformer.n_layers, t, CIR_STEPS)
+        launches = (masked_mha.launches, masked_mha.bwd_launches, layer_norm.launches)
+        want = _expected_launches(cfg, t, CIR_STEPS)
         check(t.state.step == CIR_STEPS, f"CIRTrainer took {t.state.step} steps")
         check(launches == want, f"CIRTrainer launches {launches}, expected {want}")
     train = _logged(tcfg.log_dir, t.model_name, "train")
@@ -810,6 +972,7 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
         "pools": len(t._pools.pools), "pool_size": t._pools.pool_size,
         "masked_mha_fwd_launches": launches[0],
         "masked_mha_bwd_launches": launches[1],
+        "layernorm_launches": launches[2],
     }
 
 
@@ -829,6 +992,7 @@ def _step_timing(cp_trainer):
 
     step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -838,6 +1002,7 @@ def _step_timing(cp_trainer):
     ms = float(np.mean(times))
     return {
         "train_step_ms": ms,
+        "train_step_peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "train_step_ms_each": times,
         "trained_outfits_per_s": TRAIN_B * TRAIN_A / (ms / 1e3),
         "train_step_profile": profile_call(step, top=14),
@@ -881,27 +1046,41 @@ def phase_train():
     return {
         "masked_mha_fwd": cp["masked_mha_fwd_launches"] + cir["masked_mha_fwd_launches"],
         "masked_mha_bwd": cp["masked_mha_bwd_launches"] + cir["masked_mha_bwd_launches"],
+        "layernorm": cp["layernorm_launches"] + cir["layernorm_launches"],
     }
 
 
 def _reset_tower_counts():
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.attn_block import attn_block
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
     from outfitx_tpu_torch.ops.mlp import mlp_fused
 
     masked_mha.launches = attn_block.launches = mlp_fused.launches = 0
+    layer_norm.launches = 0
 
 
 def _tower_counts():
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.attn_block import attn_block
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
     from outfitx_tpu_torch.ops.mlp import mlp_fused
 
     return {
         "masked_mha_fwd": masked_mha.launches,
         "attn_block": attn_block.launches,
         "mlp_fused": mlp_fused.launches,
+        "layernorm": layer_norm.launches,
     }
+
+
+def _tower_layernorms(encoder) -> int:
+    """LayerNorm modules of an item encoder's two towers; each runs once a
+    batch (two a layer, the towers' final ones, CLIP's pre-LN or SigLIP's
+    pooling head's)."""
+    from outfitx_tpu_torch.models.towers.common import LayerNorm
+
+    return sum(isinstance(m, LayerNorm) for m in encoder.modules())
 
 
 def _read_shards(out_dir, model_name, prefix, n_shards):
@@ -933,6 +1112,10 @@ def _sweep(cfg, model_cfg, out_dir, n_items, want_launches, **runner_kw):
     torch.cuda.synchronize()
     counts = _tower_counts()
     peak = torch.cuda.max_memory_allocated()
+    want_launches = {
+        **want_launches,
+        "layernorm": _tower_layernorms(runner.encoder) * -(-n_items // runner.cfg.batch_size),
+    }
     check(counts == want_launches,
           f"precompute launches {counts}, expected {want_launches}")
     check(result["items"] == n_items, f"precompute encoded {result['items']} items")
@@ -1011,6 +1194,9 @@ def phase_precompute():
           f"vision tower is not SigLIP ViT-B/16: {vc}")
     check((tc.max_len, tc.d_model, tc.n_heads, tc.d_mlp, tc.n_layers, tc.vocab_size)
           == (64, 768, 12, 3072, 12, 32000), f"text tower is not SigLIP-B: {tc}")
+    check(_tower_layernorms(runner.encoder) == 2 * 2 * n_layers + 3,
+          "SigLIP pair: two LayerNorms a layer, the towers' final ones and the "
+          "pooling head's")
     t0 = time.perf_counter()
     cpu_emb = _cpu_embeddings(runner, CPU_CHECK_ITEMS)
     cpu_s = time.perf_counter() - t0
@@ -1096,7 +1282,432 @@ def phase_precompute():
         + clip_counts["masked_mha_fwd"],
         "attn_block": counts["attn_block"] + fused_counts["attn_block"],
         "mlp_fused": fused_counts["mlp_fused"],
+        "layernorm": counts["layernorm"] + fused_counts["layernorm"]
+        + clip_counts["layernorm"],
     }
+
+
+def _http(url, payload=None, timeout=60):
+    """GET ``url``, or POST ``payload`` as JSON: (status, decoded body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _ok(url, payload=None):
+    status, body = _http(url, payload)
+    check(status == 200, f"{url} answered {status}: {body}")
+    return body
+
+
+def _ids(items):
+    return [x["item_id"] for x in items]
+
+
+def phase_http():
+    """``serve()`` at full width on the card, its own server in a thread:
+    concurrent clients on the coalesced and the plain routes against the
+    engine's direct answers, live update and append over HTTP, requests
+    racing updates, the stats and OpenAPI routes, exact launch counts, and an
+    age drain that lets an in-flight request finish."""
+    import concurrent.futures
+    import socket
+    import threading
+
+    from outfitx_tpu_torch.core.config import OutfitXConfig
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.serve import programs
+    from outfitx_tpu_torch.serve.app import DRAIN_EXIT_CODE, build_engine, serve
+
+    cfg = OutfitXConfig()
+    t0 = time.perf_counter()
+    engine = build_engine(
+        synthetic=True, model_cfg=cfg, device="cuda", spare_capacity=HTTP_SPARE_ROWS
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine.pools.pools.pop(0)  # category 0 takes the whole-catalog route
+    cat = engine.catalog
+    n0 = cat.n_items
+    check(cat.capacity == n0 + HTTP_SPARE_ROWS and engine._route.n_rows == cat.capacity,
+          "spare capacity not reserved")
+    cp, cp_batch, cir, _, fitb, sim = _requests(cat, np.random.default_rng(2))
+    cp, sim = cp + cp_batch, sim + [int(i) for i in cat.item_ids[:13]]
+
+    # Forwards and batched calls of the run, counted where the engine makes them.
+    model_tasks = {programs.cp_task, programs.cir_task, programs.cir_pool_task,
+                   programs.fitb_task}
+    counted = {"forwards": 0, "cp_score_batch": 0, "cir_top10_batch": 0,
+               "similar_items_batch": 0}
+    count_lock = threading.Lock()
+    real_run = engine._run
+
+    def counting_run(task, *args):
+        if task in model_tasks:
+            with count_lock:
+                counted["forwards"] += 1
+        return real_run(task, *args)
+
+    def counting(name):
+        real = getattr(engine, name)
+
+        def call(*a, **k):
+            with count_lock:
+                counted[name] += 1
+            return real(*a, **k)
+
+        return call
+
+    # The engine's direct answers, through the batched forms that the
+    # coalescers call (one bucket of 8 whatever the batch).
+    want_cp = engine.cp_score_batch(cp)
+    want_cir = engine.cir_top10_batch(cir)
+    want_sim = engine.similar_items_batch(sim)
+    want_fitb = [engine.fitb_pick(o, c) for o, c in fitb]
+    engine._run = counting_run
+    for name in ("cp_score_batch", "cir_top10_batch", "similar_items_batch"):
+        setattr(engine, name, counting(name))
+
+    # The in-flight request of the drain: a FITB pick that, once armed, holds
+    # its handler thread until the watchdog has fired.
+    hold = {"until": None}
+    real_fitb = engine.fitb_pick
+
+    def fitb_pick(outfit, candidates):
+        if hold["until"] is not None:
+            time.sleep(max(0.0, hold["until"] - time.monotonic()))
+        return real_fitb(outfit, candidates)
+
+    engine.fitb_pick = fitb_pick
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    outcome = {}
+
+    def run_server():
+        try:
+            serve(port, engine=engine, coalesce_ms=HTTP_COALESCE_MS,
+                  max_age_s=HTTP_AGE_S, poll=0.05)
+            outcome["code"] = 0
+        except SystemExit as e:
+            outcome["code"] = e.code
+
+    masked_mha.launches = layer_norm.launches = 0
+    server = threading.Thread(target=run_server)
+    started = time.monotonic()
+    server.start()
+    for _ in range(200):
+        try:
+            if _http(url + "/api/health", timeout=2)[0] == 200:
+                break
+        except OSError:
+            time.sleep(0.05)
+    check(_ok(url + "/api/health") == {"ok": True, "mock": False}, "health route")
+
+    # Concurrent clients on every request route.
+    jobs = (
+        [("cp", i, lambda o=o: _ok(url + "/api/cp", {"outfit": o})["score"])
+         for i, o in enumerate(cp)]
+        + [("cir", i, lambda o=o, t=t: _ok(url + "/api/cir", {"outfit": o, "target": t})["items"])
+           for i, (o, t) in enumerate(cir)]
+        + [("sim", i, lambda it=it: _ok(f"{url}/api/similar?item_id={it}")["items"])
+           for i, it in enumerate(sim)]
+        + [("fitb", i, lambda o=o, c=c: _ok(url + "/api/fitb", {"outfit": o, "candidates": c})["pick"])
+           for i, (o, c) in enumerate(fitb)]
+        + [("cp_batch", 0, lambda: _ok(url + "/api/cp_batch", {"outfits": cp})["scores"])]
+    )
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=HTTP_CLIENTS) as ex:
+        futs = [(kind, i, ex.submit(fn)) for kind, i, fn in jobs]
+        got = {(kind, i): f.result() for kind, i, f in futs}
+    requests_s = time.perf_counter() - t0
+
+    # Every coalesced call runs at the one bucket, as the direct answers did:
+    # the same rows through the same kernels. A different neighbour in the
+    # bucket may still change a product's last bits in bfloat16.
+    cp_err = max(abs(got["cp", i] - want_cp[i]) for i in range(len(cp)))
+    check(cp_err <= HTTP_CP_TOL, f"/api/cp off the direct score by {cp_err}")
+    batch_err = max(abs(a - b) for a, b in zip(got["cp_batch", 0], want_cp))
+    check(batch_err <= HTTP_CP_TOL, f"/api/cp_batch off the direct scores by {batch_err}")
+    cir_same = float(np.mean([_ids(got["cir", i]) == _ids(want_cir[i]) for i in range(len(cir))]))
+    # A synthetic category holds fewer items than its pool of 1,000, so a
+    # pool repeats items and a top-10 holds tied copies: compare the sets.
+    cir_overlap = float(np.mean([
+        len(set(_ids(got["cir", i])) & set(_ids(want_cir[i])))
+        / len(set(_ids(want_cir[i]))) for i in range(len(cir))
+    ]))
+    check(all(len(got["cir", i]) == 10 for i in range(len(cir))), "CIR answer without 10 items")
+    check(cir_overlap >= HTTP_OVERLAP_MIN, f"/api/cir overlaps the direct answers on {cir_overlap}")
+    sim_same = float(np.mean([_ids(got["sim", i]) == _ids(want_sim[i]) for i in range(len(sim))]))
+    check(sim_same == 1.0, f"/api/similar equals the direct answers on {sim_same}")
+    check([got["fitb", i] for i in range(len(fitb))] == want_fitb, "/api/fitb picks differ")
+    n_coalesced = {"cp_score_batch": len(cp), "cir_top10_batch": len(cir),
+                   "similar_items_batch": len(sim)}
+    batch_calls = {k: counted[k] - (1 if k == "cp_score_batch" else 0) for k in n_coalesced}
+    for name, n in n_coalesced.items():
+        check(1 <= batch_calls[name] < n,
+              f"{name}: {batch_calls[name]} batched calls for {n} requests")
+
+    # Live update over HTTP: dst takes src's embedding and becomes its nearest.
+    src, dst = sim[0], sim[1]
+    emb = cat.embeddings[engine.lookup_row(src)].tolist()
+    check(_ok(url + "/api/update_items", {"item_ids": [dst], "embeddings": [emb]})
+          == {"updated": 1}, "update_items answer")
+    near = _ok(f"{url}/api/similar?item_id={src}")["items"]
+    check(near[0]["item_id"] == dst and near[0]["score"] <= 1e-3,
+          f"the updated row is not its source's nearest: {near[0]}")
+
+    # Live append: a clone of another item is found at once, and no sentinel
+    # row is ever returned.
+    src2, new_id = sim[2], 9_000_001
+    emb2 = cat.embeddings[engine.lookup_row(src2)].tolist()
+    added = _ok(url + "/api/add_items", {
+        "item_ids": [new_id], "embeddings": [emb2],
+        "category_ids": [int(cat.category_id[engine.lookup_row(src2)])],
+        "descriptions": ["appended over HTTP"],
+    })
+    check(added == {"added": 1, "n_items": n0 + 1, "capacity": n0 + HTTP_SPARE_ROWS},
+          f"add_items answer {added}")
+    near = _ok(f"{url}/api/similar?item_id={src2}")["items"]
+    check(near[0]["item_id"] == new_id and near[0]["description"] == "appended over HTTP",
+          f"the appended item is not found: {near[0]}")
+    known = set(int(i) for i in cat.item_ids)
+    cir_new = _ok(url + "/api/cir", {"outfit": cp[0], "target": new_id})["items"]
+    check(len(cir_new) == 10 and set(_ids(cir_new) + _ids(near)) <= known,
+          "a sentinel row or an unknown id was returned")
+
+    # Requests racing updates: whole-catalog CIR (two catalog reads a
+    # request) while other clients rewrite rows.
+    rng = np.random.default_rng(3)
+    storm_rows = [rng.normal(size=(1, cfg.d_embed)).astype(np.float32).tolist() for _ in range(8)]
+    unpooled = np.flatnonzero(cat.category_id[:n0] == 0)
+    whole = [(cp[i], int(cat.item_ids[r])) for i, r in enumerate(rng.choice(unpooled, 8))]
+    storm = (
+        [lambda o=o, t=t: len(_ok(url + "/api/cir", {"outfit": o, "target": t})["items"])
+         for o, t in whole]
+        + [lambda r=r, i=i: _ok(url + "/api/update_items",
+                                {"item_ids": [sim[3 + i % 4]], "embeddings": r})["updated"]
+           for i, r in enumerate(storm_rows)]
+    )
+    with concurrent.futures.ThreadPoolExecutor(max_workers=HTTP_CLIENTS) as ex:
+        storm_out = [f.result() for f in [ex.submit(fn) for fn in storm]]
+    check(storm_out == [10] * len(whole) + [1] * len(storm_rows), f"storm answers {storm_out}")
+    torch.cuda.synchronize()
+    check(torch.equal(engine.catalog_dev.cpu(), torch.from_numpy(cat.embeddings)),
+          "host and device catalogs differ after the updates")
+
+    spec = _ok(url + "/api/openapi.json")
+    check(spec["openapi"].startswith("3.") and "/api/cir" in spec["paths"], "OpenAPI document")
+    served = {"/api/cp": len(cp), "/api/cir": len(cir) + 1 + len(whole),
+              "/api/similar": len(sim) + 2, "/api/fitb": len(fitb), "/api/cp_batch": 1,
+              "/api/update_items": 1 + len(storm_rows), "/api/add_items": 1}
+    for _ in range(100):  # a request is recorded after its response is written
+        stats = _ok(url + "/api/stats")
+        if all(stats["routes"].get(r, {}).get("n") == n for r, n in served.items()):
+            break
+        time.sleep(0.05)
+    for route, n in served.items():
+        row = stats["routes"].get(route)
+        check(row is not None and row["n"] == n and row["errors"] == 0,
+              f"stats of {route}: {row}, expected n={n}")
+        check(all(row[p] is not None and row[p] > 0 for p in ("p50_ms", "p90_ms", "p99_ms")),
+              f"stats of {route} lack a percentile: {row}")
+    check(stats["total_errors"] == 0, f"server errors: {stats['total_errors']}")
+    check(stats["catalog"] == {"n_items": n0 + 1, "capacity": n0 + HTTP_SPARE_ROWS,
+                               "updated_rows": 1 + len(storm_rows), "appended_items": 1},
+          f"catalog stats {stats['catalog']}")
+
+    # Exact launch counts of everything served so far.
+    torch.cuda.synchronize()
+    launches, ln_launches = masked_mha.launches, layer_norm.launches
+    forwards = counted["forwards"]
+    n_layers = cfg.transformer.n_layers
+    check(launches == n_layers * forwards,
+          f"http: masked_mha_fwd launched {launches} times for {forwards} forwards")
+    check(ln_launches == _ln_per_forward(cfg) * forwards,
+          f"http: layernorm launched {ln_launches} times for {forwards} forwards")
+
+    # The age drain: a request in flight when the watchdog fires finishes.
+    checks_s = time.monotonic() - started
+    check(checks_s < HTTP_AGE_S - 1.0,
+          f"the http checks took {checks_s:.1f} s, past the drain at {HTTP_AGE_S} s")
+    hold["until"] = started + HTTP_AGE_S + 2.0
+    in_flight = {}
+
+    def slow_client():
+        in_flight["answer"] = _http(
+            url + "/api/fitb", {"outfit": fitb[0][0], "candidates": fitb[0][1]}
+        )
+
+    client = threading.Thread(target=slow_client)
+    client.start()
+    server.join(timeout=HTTP_AGE_S + 60)
+    client.join(timeout=60)
+    check(not server.is_alive() and not client.is_alive(), "the drained server did not stop")
+    check(outcome.get("code") == DRAIN_EXIT_CODE, f"serve() ended with {outcome}")
+    status, body = in_flight.get("answer", (None, None))
+    check(status == 200 and 0 <= body["pick"] < len(fitb[0][1]),
+          f"the in-flight request got {in_flight.get('answer')}")
+    try:
+        _http(url + "/api/health", timeout=2)
+        check(False, "the drained server still accepts connections")
+    except OSError:
+        pass
+
+    emit({
+        "phase": "http",
+        "d_embed": cfg.d_embed, "n_layers": n_layers, "catalog_items": n0,
+        "spare_rows": HTTP_SPARE_ROWS, "coalesce_ms": HTTP_COALESCE_MS,
+        "clients": HTTP_CLIENTS, "engine_build_s": build_s,
+        "requests": len(jobs), "requests_s": requests_s,
+        "batched_calls": batch_calls, "coalesced_requests": n_coalesced,
+        "cp_max_abs_err": cp_err, "cp_batch_max_abs_err": batch_err,
+        "cir_equal": cir_same, "cir_overlap": cir_overlap, "similar_equal": sim_same,
+        "storm": {"cir_requests": len(whole), "updates": len(storm_rows)},
+        "forwards": forwards, "masked_mha_launches": launches,
+        "layernorm_launches": ln_launches,
+        "route_stats_ms": {
+            r: {p: stats["routes"][r][p] for p in ("n", "p50_ms", "p90_ms", "p99_ms")}
+            for r in ("/api/cp", "/api/cir", "/api/similar", "/api/fitb", "/api/cp_batch")
+        },
+        "drain": {"age_s": HTTP_AGE_S, "exit_code": outcome["code"],
+                  "in_flight_status": in_flight["answer"][0]},
+    })
+    return {"masked_mha_fwd": launches, "layernorm": ln_launches}
+
+
+def _big_catalog(n, d, seed):
+    """A synthetic catalog of ``n`` items at width ``d`` with the structure
+    of real embeddings: points of a 64-dimensional subspace plus small
+    noise. Made on the card and copied to the host once."""
+    from outfitx_tpu_torch.data.catalog import Catalog
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    basis = torch.randn((64, d), generator=gen, device="cuda") / 8.0
+    emb = torch.zeros((n + 1, d), device="cuda")  # the last row is the PAD row
+    step = 50_000
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        z = torch.randn((e - s, 64), generator=gen, device="cuda")
+        emb[s:e] = z @ basis + 0.05 * torch.randn((e - s, d), generator=gen, device="cuda")
+    item_ids = np.arange(1, n + 1, dtype=np.int64)
+    return Catalog(
+        item_ids=item_ids, embeddings=emb.cpu().numpy(),
+        category_id=np.zeros(n, np.int32), semantic_category=np.zeros(n, np.int32),
+        semantic_vocab=[""], id_to_row={int(i): r for r, i in enumerate(item_ids)},
+    )
+
+
+def phase_retrieval():
+    """Whole-catalog retrieval at a real size: 300,000 items x 1536, above
+    the default chunk threshold, top-10 neighbours of 8 items by the dense,
+    chunked, int8 and int8-chunked routes of the engine; then a live update
+    of 1,500 rows against a full requantisation."""
+    from outfitx_tpu_torch.core.config import OutfitXConfig
+    from outfitx_tpu_torch.ops.quantization import quantize_catalog
+    from outfitx_tpu_torch.serve.engine import ServingEngine
+    from outfitx_tpu_torch.serve.programs import sim_task
+
+    cfg = OutfitXConfig()
+    n, d, k = RETRIEVAL_ITEMS, cfg.d_embed, 10
+    t0 = time.perf_counter()
+    catalog = _big_catalog(n, d, seed=4)
+    data_s = time.perf_counter() - t0
+    queries = [int(i) for i in catalog.item_ids[:: n // RETRIEVAL_QUERIES][:RETRIEVAL_QUERIES]]
+    qrows = torch.as_tensor([catalog.id_to_row[i] for i in queries], device="cuda")
+    routes = {
+        "dense": {"chunk_threshold": 1 << 30},
+        "chunked": {},
+        "int8": {"quantized": True, "chunk_threshold": 1 << 30},
+        "int8_chunked": {"quantized": True},
+    }
+    out, answers, engines = {}, {}, {}
+    for name, kw in routes.items():
+        torch.cuda.empty_cache()
+        eng = ServingEngine(model_cfg=cfg, catalog=catalog, device="cuda", **kw)
+        check(eng._route.chunked == ("chunk_threshold" not in kw)
+              and eng._route.quantized == ("quantized" in kw), f"route of {name}: {eng._route}")
+        answers[name] = eng.similar_items_batch(queries, k=k)
+
+        def call():
+            return eng._run(sim_task, eng.catalog_dev, eng._qcat, eng._route, qrows, k + 1)
+
+        call()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(call, iters=10, warmup=2)
+        out[name] = {
+            "ms": ms,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - resident,
+            "catalog_bytes": eng.catalog_dev.nbytes
+            + (eng._qcat.nbytes if eng._qcat is not None else 0),
+        }
+        if name == "int8":
+            engines[name] = eng
+        else:
+            del eng
+    for name, ans in answers.items():
+        check(all(len(a) == k for a in ans), f"{name}: an answer without {k} items")
+        check(all(q not in _ids(a) for q, a in zip(queries, ans)),
+              f"{name}: a query item among its own neighbours")
+    dist_rel = 0.0
+    for a, b in zip(answers["dense"], answers["chunked"]):
+        check(_ids(a) == _ids(b), "the chunked route's rows differ from the dense route's")
+        dist_rel = max(dist_rel, max(
+            abs(x["score"] - y["score"]) / max(x["score"], 1e-6) for x, y in zip(a, b)
+        ))
+    check(dist_rel <= 1e-3, f"chunked distances off the dense ones by {dist_rel} relative")
+    for a, b in zip(answers["int8"], answers["int8_chunked"]):
+        check(_ids(a) == _ids(b), "the int8-chunked route's rows differ from the int8 route's")
+    overlap = float(np.mean([
+        len(set(_ids(a)) & set(_ids(b))) / k for a, b in zip(answers["dense"], answers["int8"])
+    ]))
+    check(overlap >= INT8_OVERLAP_MIN, f"int8 picks overlap the dense ones on {overlap}")
+
+    # torch.topk alone at the distance matrix's shape: what an approximate
+    # top-k kernel could save at most.
+    d2 = torch.rand((RETRIEVAL_QUERIES, n), device="cuda")
+    topk_ms = cuda_ms(lambda: torch.topk(d2, k + 1, largest=False), iters=20)
+
+    # A live update of 1,500 rows (two buckets of 1,024, the second padded):
+    # all three int8 fields equal a full requantisation bit for bit.
+    eng = engines["int8"]
+    rng = np.random.default_rng(5)
+    rows = rng.choice(n, RETRIEVAL_UPDATE_ROWS, replace=False)
+    vals = rng.normal(size=(RETRIEVAL_UPDATE_ROWS, d)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.update_items([int(catalog.item_ids[r]) for r in rows], vals)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    check(torch.equal(eng.catalog_dev[torch.as_tensor(rows, device="cuda")].cpu(),
+                      torch.from_numpy(vals)), "updated rows differ on the device")
+    full = quantize_catalog(eng.catalog_dev, n_rows=catalog.pad_row)
+    for field in ("values", "scales", "sq_norms"):
+        check(torch.equal(getattr(eng._qcat, field), getattr(full, field)),
+              f"int8 {field} differ from a full requantisation after the update")
+    del eng, engines, full
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "retrieval",
+        "items": n, "d_embed": d, "queries": RETRIEVAL_QUERIES, "k": k,
+        "chunk_threshold": 262_144, "data_s": data_s, "routes": out,
+        "chunked_vs_dense_max_rel_dist": dist_rel, "int8_vs_dense_overlap": overlap,
+        "topk_ms": topk_ms, "update_rows": RETRIEVAL_UPDATE_ROWS, "update_s": update_s,
+        "int8_equals_full_requantisation": True,
+    })
+
 
 
 def _bwd_timing(shape):
@@ -1205,6 +1816,34 @@ def _tower_timing():
     return out
 
 
+def _layernorm_timing():
+    """layernorm in bfloat16 at the set transformer's and the towers' row
+    counts: kernel, plain version, ``F.layer_norm`` (its parameters cast to
+    bfloat16 once, outside the timed call) and the bound."""
+    from outfitx_tpu_torch.ops.layernorm import _layer_norm_cuda, layer_norm_reference
+
+    dt = torch.bfloat16
+    out = {}
+    for shape in LAYERNORM_TIMING_SHAPES:
+        eps = 1e-6 if shape[1] == 768 else 1e-5
+        x, weight, bias = layernorm_inputs(shape, dt, seed=14)
+        w16, b16 = weight.to(dt), bias.to(dt)
+        iters = 200 if shape[0] <= 1024 else 20
+        bound, bound_by = layernorm_bound(shape, dt)
+        out["x".join(str(n) for n in shape)] = {
+            "shape": list(shape), "eps": eps,
+            "ms": cuda_ms(lambda: _layer_norm_cuda(x, weight, bias, eps), iters),
+            "plain_ms": cuda_ms(lambda: layer_norm_reference(x, weight, bias, eps), iters),
+            "library_ms": cuda_ms(
+                lambda: F.layer_norm(x, (shape[1],), w16, b16, eps), iters
+            ),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing(engine):
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
@@ -1247,11 +1886,13 @@ def phase_timing(engine):
         lat.append((time.perf_counter() - t0) * 1e3)
     lat = np.asarray(lat[10:])
     towers = _tower_timing()
+    layernorm = _layernorm_timing()
     emit({
         "phase": "timing",
         "masked_mha_fwd": per_shape,
         "masked_mha_bwd": bwd,
         "towers": towers,
+        "layernorm": layernorm,
         "cp_forward_b4096_ms": fwd_ms,
         "cp_forward_outfits_per_s": b / (fwd_ms / 1e3),
         "attention_share_of_cp_forward": (
@@ -1262,7 +1903,7 @@ def phase_timing(engine):
         "cp_score_p99_ms": float(np.percentile(lat, 99)),
         "cp_score_samples": int(lat.size),
     })
-    return per_shape, bwd, towers
+    return per_shape, bwd, towers, layernorm
 
 
 def main() -> int:
@@ -1282,7 +1923,9 @@ def main() -> int:
     engine, serve_launches = phase_serve()
     train_launches = phase_train()
     precompute_launches = phase_precompute()
-    fwd, bwd, towers = phase_timing(engine)
+    http_launches = phase_http()
+    phase_retrieval()
+    fwd, bwd, towers, layernorm = phase_timing(engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
             "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
@@ -1295,10 +1938,15 @@ def main() -> int:
         ("mlp_fused", "outfitx_tpu/ops/mlp.py:38", towers["mlp_fused_vision"], {
             "at_text_tower": towers["mlp_fused_text"],
         }),
+        ("layernorm", "outfitx_tpu/ops/layernorm.py:33", layernorm["136x1536"], {
+            "at_b4096": layernorm["69632x1536"], "at_b3072": layernorm["52224x1536"],
+            "at_vision_tower": layernorm["401408x768"],
+            "at_text_tower": layernorm["131072x768"],
+        }),
     ]
     by_path = {
         "serve": serve_launches, "train": train_launches,
-        "precompute": precompute_launches,
+        "precompute": precompute_launches, "http": http_launches,
     }
     for name, *_ in rows:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()

@@ -1,6 +1,6 @@
 """Item catalog: the embedding table and item metadata columns.
 
-This package's copy of ``outfitx_tpu/data/catalog.py`` (the serving subset):
+This package's copy of ``outfitx_tpu/data/catalog.py``:
 
 - ``embeddings``: (N+1, D) float32; row N is an all-zero PAD row, so padded
   outfit slots gather zeros;
@@ -39,7 +39,14 @@ class Catalog:
 
     @property
     def pad_row(self) -> int:
-        """The table's last row, the all-zero PAD row."""
+        """The table's last row, the all-zero PAD row. Equals ``n_items`` in
+        the standard (N+1) layout; after ``reserve`` the layout is
+        [items][spare sentinel rows][PAD] and it equals ``capacity``."""
+        return self.embeddings.shape[0] - 1
+
+    @property
+    def capacity(self) -> int:
+        """Item rows the table can hold (the PAD row excluded)."""
         return self.embeddings.shape[0] - 1
 
     @property
@@ -48,6 +55,81 @@ class Catalog:
 
     def rows(self, ids) -> np.ndarray:
         return np.asarray([self.id_to_row[i] for i in ids], dtype=np.int32)
+
+    # -------------------------------------------------- live append API --
+    # Serving-side catalog growth: reserve spare rows once (before splits
+    # are staged: their padded slots hold pad_row), then append items into
+    # them without ever changing the table's shape.
+    SENTINEL = 1.0e4  # per-dimension value of unfilled spare rows: their L2
+    # distance to any real query is so large that retrieval over [:pad_row]
+    # may include them and they never win a top-k slot.
+
+    def reserve(self, extra: int) -> int:
+        """Grow the table to [items][``extra`` sentinel rows][PAD].
+
+        Returns the old pad row index so callers can remap split arrays
+        built before (their padded slots hold the old index, which now
+        points at a sentinel row)."""
+        old_pad = self.pad_row
+        n, d = self.n_items, self.d_embed
+        emb = np.zeros((self.capacity + extra + 1, d), dtype=np.float32)
+        emb[:n] = self.embeddings[:n]
+        emb[n : self.capacity + extra] = self.SENTINEL
+        self.embeddings = emb
+        return old_pad
+
+    def append_items(
+        self,
+        item_ids,
+        embeddings,
+        category_ids=None,
+        semantic_categories: Optional[List[str]] = None,
+        descriptions: Optional[List[str]] = None,
+    ) -> np.ndarray:
+        """Append new items into reserved spare rows; returns their row
+        indices. Raises when out of capacity (``reserve`` more first) or on
+        an id that already exists (use an update path for those)."""
+        ids = [int(i) for i in item_ids]
+        k = len(ids)
+        n = self.n_items
+        if n + k > self.capacity:
+            raise ValueError(
+                f"catalog capacity {self.capacity} cannot take {k} more "
+                f"items (have {n}); reserve() more spare rows"
+            )
+        dup = [i for i in ids if i in self.id_to_row]
+        if dup:
+            raise ValueError(f"item ids already in catalog: {dup[:5]}")
+        vals = np.asarray(embeddings, dtype=np.float32)
+        if vals.shape != (k, self.d_embed):
+            raise ValueError(
+                f"embeddings shape {vals.shape} != ({k}, {self.d_embed})"
+            )
+        rows = np.arange(n, n + k, dtype=np.int32)
+        self.embeddings[rows] = vals
+        self.item_ids = np.concatenate(
+            [self.item_ids, np.asarray(ids, dtype=np.int64)]
+        )
+        cid = (
+            np.asarray(category_ids, dtype=np.int32)
+            if category_ids is not None
+            else np.full(k, -1, dtype=np.int32)
+        )
+        self.category_id = np.concatenate([self.category_id, cid])
+        sem = np.zeros(k, dtype=np.int32)
+        for j, name in enumerate(semantic_categories or [""] * k):
+            name = str(name)
+            if name not in self.semantic_vocab:
+                self.semantic_vocab.append(name)
+            sem[j] = self.semantic_vocab.index(name)
+        self.semantic_category = np.concatenate([self.semantic_category, sem])
+        if self.descriptions is not None:
+            self.descriptions.extend(
+                list(descriptions) if descriptions is not None else [""] * k
+            )
+        for r, i in zip(rows, ids):
+            self.id_to_row[i] = int(r)
+        return rows
 
     @classmethod
     def from_polyvore(

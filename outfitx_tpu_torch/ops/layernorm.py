@@ -1,16 +1,158 @@
-"""LayerNorm over the last axis, plain PyTorch.
+"""LayerNorm over the last axis, with a hand-written CUDA kernel.
 
-Statistics in float32, eps 1e-5, output in the input dtype, as the JAX
-package's ``_ln_reference``. Its Pallas kernel (``outfitx_tpu/ops/
-layernorm.py:_ln_kernel``) is off the serving path there (``auto`` resolves
-to XLA) and is ported in a later slice.
+``layer_norm`` is the port of ``outfitx_tpu/ops/layernorm.py``. A CUDA
+tensor goes to the kernel ``csrc/layernorm.cu`` (the port of ``_ln_kernel``)
+or raises; a CPU tensor goes to ``layer_norm_reference``, the plain PyTorch
+version, which is also what the kernel is held against on the card.
+Statistics are float32 with the centred variance, the output has the input's
+dtype, and ``eps`` is an argument (1e-5 in the set transformer, 1e-6 in the
+SigLIP towers). The JAX package resolves its ``auto`` route to XLA, which
+fuses the normalisation into its neighbours; eager PyTorch fuses nothing, so
+here every ``layer_norm`` on the card launches the kernel.
+
+Under autograd the call goes through ``LayerNormFn``: it saves only
+``(x, weight, bias)`` and computes the closed-form backward of the JAX
+package's ``_ln_bwd`` in plain float32 torch (no backward kernel, as there).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from outfitx_tpu_torch.ops import _launch
+
+_NAME = "layernorm"
 _EPS = 1e-5
+
+
+def layer_norm_reference(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = _EPS,
+) -> torch.Tensor:
+    """Plain PyTorch version: statistics and the affine map in float32,
+    rounded once to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm_bwd_reference(x, weight, bias, g, eps: float = _EPS):
+    """Closed-form gradients of ``layer_norm`` for the output gradient ``g``:
+    (dx in x's dtype, dweight, dbias in the parameters' dtypes), computed in
+    float32; dweight and dbias are summed over all leading axes."""
+    xf = x.float()
+    gf = g.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gxhat = gf * weight.float()
+    dx = (
+        gxhat
+        - gxhat.mean(dim=-1, keepdim=True)
+        - xhat * (gxhat * xhat).mean(dim=-1, keepdim=True)
+    ) * rstd
+    lead = tuple(range(x.dim() - 1))
+    dweight = (gf * xhat).sum(dim=lead) if lead else gf * xhat
+    dbias = gf.sum(dim=lead) if lead else gf
+    return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
+
+
+def _wants_kernel(t: torch.Tensor) -> bool:
+    """The one dispatch predicate: the kernel for a tensor on the card."""
+    return t.is_cuda
+
+
+def _check_param(name: str, p: torch.Tensor, d: int, device) -> torch.Tensor:
+    """A (d,) parameter as the kernel takes it: float32 (cast here if the
+    caller hands another dtype), contiguous, on x's device."""
+    if tuple(p.shape) != (d,):
+        raise ValueError(f"{_NAME}: {name} must be ({d},), got {tuple(p.shape)}")
+    if p.device != device:
+        raise ValueError(f"{_NAME}: {name} must be on the input's device")
+    return p.to(torch.float32).contiguous()
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{_NAME}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{_NAME}: {name} must be 16-byte aligned")
+
+
+def _prepare(x, weight, bias):
+    """Checks shared by every device: x float32 or bfloat16 of at least one
+    row, as contiguous (rows, d); the parameters float32 (d,)."""
+    if x.dtype not in _launch.DTYPE_CODES:
+        raise TypeError(f"{_NAME} kernel takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"{_NAME}: x needs a last axis, got {tuple(x.shape)}")
+    d = x.shape[-1]
+    weight = _check_param("weight", weight, d, x.device)
+    bias = _check_param("bias", bias, d, x.device)
+    x2 = x.reshape(-1, d).contiguous()
+    if x2.shape[0] < 1:
+        raise ValueError(f"{_NAME} kernel takes at least one row")
+    _check_aligned(x=x2, weight=weight, bias=bias)
+    return x2, weight, bias
+
+
+def _layer_norm_cuda(x, weight, bias, eps: float = _EPS):
+    x2, weight, bias = _prepare(x, weight, bias)
+    fn = _launch.bind(
+        _NAME,
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_void_p],
+    )
+    out = torch.empty_like(x2)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(
+        x2.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x2.shape[0], x2.shape[1], float(eps),
+        _launch.DTYPE_CODES[x.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{_NAME} launch failed: cudaError {err}")
+    layer_norm.launches += 1
+    return out.reshape(x.shape)
+
+
+def _forward(x, weight, bias, eps):
+    if _wants_kernel(x):
+        return _layer_norm_cuda(x, weight, bias, eps)
+    return layer_norm_reference(x, weight, bias, eps)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """``layer_norm`` under autograd: the forward of the input's device, and
+    the closed-form backward from the saved ``(x, weight, bias)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        dx, dweight, dbias = layer_norm_bwd_reference(x, weight, bias, g, ctx.eps)
+        need = ctx.needs_input_grad
+        return (
+            dx if need[0] else None,
+            dweight if need[1] else None,
+            dbias if need[2] else None,
+            None,
+        )
 
 
 def layer_norm(
@@ -19,10 +161,18 @@ def layer_norm(
     bias: torch.Tensor,
     eps: float = _EPS,
 ) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    xc = xf - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    y = xc * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
-    return y.to(x.dtype)
+    """LayerNorm over the last axis: x (..., d), weight and bias (d,).
+
+    On the card it launches its CUDA kernel and adds one to
+    ``layer_norm.launches``, or raises (x must be float32 or bfloat16; the
+    parameters are cast to float32 if they are not); on the CPU it runs the
+    plain version. Returns x's shape and dtype.
+    """
+    if torch.is_grad_enabled() and (
+        x.requires_grad or weight.requires_grad or bias.requires_grad
+    ):
+        return LayerNormFn.apply(x, weight, bias, eps)
+    return _forward(x, weight, bias, eps)
+
+
+layer_norm.launches = 0

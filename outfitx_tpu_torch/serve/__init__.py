@@ -1,1 +1,2 @@
-"""Serving: the engine, its task functions and ``build_engine``."""
+"""Serving: the engine and its task functions, live updates, the request
+coalescers and the HTTP app (``build_engine``, ``serve``)."""

@@ -27,6 +27,8 @@ class BatchedRequests:
 
     def cp_score_batch(self, outfits: List[List[int]]) -> List[float]:
         """Sigmoid scores for many outfits, in chunks of ``cp_batch_bucket``."""
+        if self.mock:
+            return [float(self._rng.random()) for _ in outfits]
         if not outfits:
             return []
         for ids in outfits:
@@ -54,6 +56,16 @@ class BatchedRequests:
         grouped by route (the target's category has a pool, or the whole
         catalog), each group in chunks of ``cp_batch_bucket``. Results keep
         request order."""
+        if self.mock:
+            return [
+                [
+                    self._item_info(int(r), 1.0)
+                    for r in self._rng.choice(
+                        self.catalog.n_items, 10, replace=False
+                    )
+                ]
+                for _ in requests
+            ]
         if not requests:
             return []
         l = self.model_cfg.max_outfit_len
@@ -80,15 +92,15 @@ class BatchedRequests:
 
         for sel, padded in _bucket_chunks(cat_idx, bucket):
             d2, idx = self._run(
-                cir_task, self.cir_model, self.catalog_dev,
-                self.catalog.pad_row, rows[padded], mask[padded],
-                trows[padded],
+                cir_task, self.cir_model, self.catalog_dev, self._qcat,
+                self._route, rows[padded], mask[padded], trows[padded],
             )
             d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
             for j, i in enumerate(sel):
                 out[i] = [
                     self._item_info(int(r), float(dd))
                     for r, dd in zip(idx[j], d2[j])
+                    if int(r) < self.catalog.n_items  # skip spare sentinels
                 ]
         for sel, padded in _bucket_chunks(pool_idx, bucket):
             prows = np.stack([pools_of[int(i)] for i in padded])
@@ -109,6 +121,8 @@ class BatchedRequests:
     ) -> List[List[Dict]]:
         """Nearest neighbours for many query items, in chunks of
         ``cp_batch_bucket``."""
+        if self.mock:
+            return [self.similar_items(i, k) for i in item_ids]
         if not item_ids:
             return []
         qrows = np.asarray(
@@ -120,7 +134,8 @@ class BatchedRequests:
         ):
             chunk = qrows[padded]
             d2, idx = self._run(
-                sim_task, self.catalog_dev, self.catalog.pad_row, chunk, k + 1
+                sim_task, self.catalog_dev, self._qcat, self._route, chunk,
+                k + 1,
             )
             d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
             for j in range(len(sel)):
@@ -128,7 +143,7 @@ class BatchedRequests:
                 items = [
                     self._item_info(int(i), float(dd))
                     for i, dd in zip(idx[j], d2[j])
-                    if int(i) != row
+                    if int(i) != row and int(i) < self.catalog.n_items
                 ]
                 out.append(items[:k])
         return out

@@ -33,8 +33,26 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    for name in ("masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused"):
+    for name in ("masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"):
         assert (ROOT / "outfitx_tpu_torch" / "csrc" / f"{name}.cu").is_file()
+    scanned = {str(p.relative_to(ROOT / "outfitx_tpu_torch")) for p in PORT_FILES[:-1]}
+    for module in (
+        "ops/layernorm.py", "ops/quantization.py", "ops/retrieval.py",
+        "serve/app.py", "serve/browse.py", "serve/coalesce.py", "serve/engine.py",
+        "serve/live_update.py", "serve/openapi.py", "serve/stats.py", "serve/ui.py",
+    ):
+        assert module in scanned, module
+
+
+def test_chip_smoke_builds_every_kernel_source():
+    """``chip_smoke.KERNELS`` names exactly the ``csrc/*.cu`` sources."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text(encoding="utf-8"))
+    kernels = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "KERNELS"
+    )
+    sources = sorted(p.stem for p in (ROOT / "outfitx_tpu_torch" / "csrc").glob("*.cu"))
+    assert sorted(kernels) == sources
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

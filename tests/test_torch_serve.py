@@ -18,6 +18,7 @@ from outfitx_tpu_torch.core import config as tcfg
 from outfitx_tpu_torch.data.sampler import CandidatePools
 from outfitx_tpu_torch.data.synthetic import make_synthetic
 from outfitx_tpu_torch.models import state_dict_from_jax
+from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
 from outfitx_tpu_torch.ops.attention import masked_mha
 from outfitx_tpu_torch.serve.app import build_engine
 from outfitx_tpu_torch.serve.engine import ServingEngine, UnknownItemError
@@ -171,22 +172,156 @@ def test_device_defaults_to_cuda_and_raises_without_it(tiny_cfg):
 
 @pytest.mark.parametrize(
     "option",
-    [
-        {"quantized": True},
-        {"quantize_model": True},
-        {"spare_capacity": 16},
-        {"mesh": object()},
-        {"chunk_threshold": 100},
-    ],
+    [{"quantize_model": True}, {"mesh": object()}],
     ids=lambda o: next(iter(o)),
 )
 def test_unported_routes_raise(tiny_cfg, option):
     data = make_synthetic(**DATA)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="later slice"):
         ServingEngine(
             model_cfg=port_config(tiny_cfg), catalog=data.catalog, device="cpu",
             warmup=False, **option,
         )
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        {"quantized": True},
+        {"spare_capacity": 16},
+        {"chunk_threshold": 100},
+        {"catalog_dtype": "bfloat16"},
+        {"approx_topk": False},
+    ],
+    ids=lambda o: next(iter(o)),
+)
+def test_ported_routes_build_and_answer(tiny_cfg, option):
+    data = make_synthetic(**DATA)
+    sd = OutfitXModel(port_config(tiny_cfg), device="cpu", seed=0).state_dict()
+    eng = ServingEngine(
+        model_cfg=port_config(tiny_cfg), catalog=data.catalog, cp_params=sd,
+        cir_params=sd, device="cpu", **option,  # with the warmup
+    )
+    ids = eng.sample_outfit(4)
+    assert 0.0 <= eng.cp_score(ids) <= 1.0
+    assert len(eng.cir_top10(ids[:3], ids[3])) == 10
+    assert len(eng.similar_items(ids[0], k=5)) == 5
+    assert eng._route.chunked == ("chunk_threshold" in option)
+    assert (eng._qcat is not None) == ("quantized" in option)
+
+
+def test_unknown_catalog_dtype_raises(tiny_cfg):
+    data = make_synthetic(**DATA)
+    with pytest.raises(ValueError, match="catalog_dtype"):
+        ServingEngine(
+            model_cfg=port_config(tiny_cfg), catalog=data.catalog, device="cpu",
+            catalog_dtype="float16",
+        )
+
+
+_ROUTE_ENGINES = {}
+
+
+def _route_engines(tiny_cfg, quantized, chunk_threshold, approx):
+    """The JAX engine with exact top-k and the port's engine on one route of
+    the whole-catalog matrix (no pools), from the same weights. The JAX
+    engines are kept: a route's programs compile once per process."""
+    if "params" not in _ROUTE_ENGINES:
+        params = JaxModel(tiny_cfg).init(jax.random.PRNGKey(0))
+        _ROUTE_ENGINES["params"] = params
+        _ROUTE_ENGINES["sd"] = state_dict_from_jax(jax.tree.map(np.asarray, params))
+    key = (quantized, chunk_threshold)
+    if key not in _ROUTE_ENGINES:
+        _ROUTE_ENGINES[key] = JaxEngine(
+            model_cfg=tiny_cfg, catalog=jax_make_synthetic(**DATA).catalog,
+            cp_params=_ROUTE_ENGINES["params"], cir_params=_ROUTE_ENGINES["params"],
+            approx_topk=False, warmup=False, quantized=quantized,
+            chunk_threshold=chunk_threshold,
+        )
+    port = ServingEngine(
+        model_cfg=port_config(tiny_cfg), catalog=make_synthetic(**DATA).catalog,
+        cp_params=_ROUTE_ENGINES["sd"], cir_params=_ROUTE_ENGINES["sd"], device="cpu",
+        warmup=False, quantized=quantized, chunk_threshold=chunk_threshold,
+        approx_topk=approx,
+    )
+    return _ROUTE_ENGINES[key], port
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "approx"])
+@pytest.mark.parametrize("chunk_threshold", [262_144, 100], ids=["materialised", "chunked"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["dense", "int8"])
+def test_route_matrix_matches_jax(tiny_cfg, quantized, chunk_threshold, approx):
+    """{dense, int8} x {materialised, chunked} x {approx, exact}: CP at 1e-4,
+    and the rows of whole-catalog CIR and similar items equal to the JAX
+    engine's on the same route with exact top-k (the int8 rows to JAX's int8
+    route; the port's ``approx`` is exact)."""
+    jax_eng, port = _route_engines(tiny_cfg, quantized, chunk_threshold, approx)
+    assert port._route == port._route.__class__(
+        n_rows=300, quantized=quantized, chunked=chunk_threshold < 300,
+        chunk_size=chunk_threshold, approx=approx,
+    )
+    if quantized:
+        np.testing.assert_array_equal(
+            port._qcat.values.numpy(), np.asarray(jax_eng._qcat.values)
+        )
+    outfit, in_category = _requests(port.catalog, 11)
+    for i in range(3):
+        o, t = outfit(), in_category(i)
+        assert abs(port.cp_score(o) - jax_eng.cp_score(o)) <= 1e-4
+        _same_items(port.cir_top10(o, t), jax_eng.cir_top10(o, t))
+    items = [int(i) for i in port.catalog.item_ids[20:31]]  # two buckets
+    for got, want in zip(port.similar_items_batch(items, k=5),
+                         jax_eng.similar_items_batch(items, k=5)):
+        _same_items(got, want)
+    _same_items(port.similar_items(items[0], k=5), jax_eng.similar_items(items[0], k=5))
+
+
+def test_bf16_catalog_matches_jax(tiny_cfg):
+    """catalog_dtype="bfloat16": the device catalog equals the JAX engine's
+    bit for bit (both round on the host), half the bytes, and the answers
+    stay within the storage rounding of the float32 catalog's."""
+    params = JaxModel(tiny_cfg).init(jax.random.PRNGKey(0))
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, params))
+    jax_eng = JaxEngine(
+        model_cfg=tiny_cfg, catalog=jax_make_synthetic(**DATA).catalog,
+        cp_params=params, cir_params=params, approx_topk=False, warmup=False,
+        catalog_dtype="bfloat16",
+    )
+    mk = lambda dt: ServingEngine(
+        model_cfg=port_config(tiny_cfg), catalog=make_synthetic(**DATA).catalog,
+        cp_params=sd, cir_params=sd, device="cpu", warmup=False, catalog_dtype=dt,
+    )
+    f32, bf16 = mk("float32"), mk("bfloat16")
+    assert bf16.catalog_dev.dtype == torch.bfloat16
+    assert bf16.catalog_dev.nbytes * 2 == f32.catalog_dev.nbytes
+    np.testing.assert_array_equal(
+        bf16.catalog_dev.float().numpy(),
+        np.asarray(jax_eng.catalog_dev).astype(np.float32),
+    )
+    outfit, in_category = _requests(f32.catalog, 12)
+    outfits = [outfit() for _ in range(4)]
+    a = np.asarray([f32.cp_score(o) for o in outfits])
+    b = np.asarray([bf16.cp_score(o) for o in outfits])
+    np.testing.assert_allclose(a, b, atol=2e-2)
+    np.testing.assert_allclose(b, [jax_eng.cp_score(o) for o in outfits], atol=1e-4)
+    o, t = outfit(), in_category(0)
+    got = {x["item_id"] for x in bf16.cir_top10(o, t)}
+    assert len(got & {x["item_id"] for x in f32.cir_top10(o, t)}) >= 8
+    assert len(got & {x["item_id"] for x in jax_eng.cir_top10(o, t)}) >= 9
+
+
+@pytest.mark.parametrize("n_cands", [2, 3, 4, 5, 8, 9])
+def test_fitb_candidate_buckets_match_jax(engines, n_cands):
+    """Any candidate count runs at a power-of-two bucket of at least 4, padded
+    with candidate 0; the pick equals the JAX engine's, and a pad never wins."""
+    jax_eng, port, _, tdata = engines
+    outfit, in_category = _requests(tdata.catalog, 20 + n_cands)
+    for i in range(3):
+        o = outfit()
+        cands = [in_category((i + j) % 8) for j in range(n_cands)]
+        pick = port.fitb_pick(o, cands)
+        assert 0 <= pick < n_cands
+        assert pick == jax_eng.fitb_pick(o, cands)
 
 
 def test_build_engine_loads_jax_checkpoints(tiny_cfg, tmp_path):
