@@ -7,19 +7,25 @@ Phases, each printing one JSON line:
 1. env      torch and CUDA versions, the card's name and power limit;
 2. build    compile every CUDA kernel (forward and backward attention, the
             fused attention block, the fused tower MLP, LayerNorm) with nvcc
-            for sm_90a, one process per source, all started together;
+            for sm_90a, one process per source, all started together; ptxas
+            registers and spills by kernel, the Hopper kernels' dynamic
+            shared memory;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the set transformer's shapes and at the towers' (attention at
             L=196, 50, 77 causal and 256; attn_block at the SigLIP text
-            tower's 2048x64x768; mlp_fused at 131072x768x3072; layernorm at
-            136, 69,632 and 401,408 rows, ragged widths, constant and 1e4
-            rows, and its closed-form backward against autograd);
+            tower's 2048x64x768 with fully and almost fully masked rows, and
+            at B=2047; mlp_fused at 131072 and 401408 (vision) x768x3072 and
+            at 130,001 rows; layernorm at 136, 69,632 and 401,408 rows,
+            ragged widths, constant and 1e4 rows, and its closed-form
+            backward against autograd);
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
             are checked (6 attention and 12 LayerNorm launches a forward),
             and the answers are held against the same engine on the CPU in
-            float32;
+            float32; then an engine with ``attn="block"`` answers the CP
+            requests through the fused attention block (6 launches a
+            forward) within the CPU tolerance of the default engine;
 5. train    (a) one CP train step at full width (B=64, A=2, bf16) against
             the same step on the CPU in float32 from the same weights;
             (b) ``CPTrainer`` at the reference envelope (B=3072, A=4,
@@ -54,8 +60,10 @@ Phases, each printing one JSON line:
             live update of 1,500 rows against a full requantisation;
 9. timing   kernel, plain version and the PyTorch library call at the
             serving bucket (B=8), the training and throughput shapes and
-            the towers' shapes at batch 2048; the CP forward's outfits/s at
-            B=4096 and the cp_score latency.
+            the towers' shapes at batch 2048 (with the bytes that attn_block
+            and mlp_fused read through L2 per launch, beside the earlier
+            one-block design's); the CP forward's outfits/s at B=4096 and the cp_score
+            latency.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -120,15 +128,20 @@ TOWER_MHA_SHAPES = [
     ((64, 8, 77, 64), True), ((2, 4, 256, 128), False),
 ]
 # attn_block (B, L, d, H, causal): the SigLIP text tower, the set transformer
-# in eval, and a small causal case.
+# in eval, a small causal case, and the tower's shape at a batch whose token
+# rows (131,008) leave the GEMM's last 128-row tile ragged.
 ATTN_BLOCK_SHAPES = [
     (2048, 64, 768, 12, False), (8, 17, 1536, 16, False), (3, 16, 64, 4, True),
+    (2047, 64, 768, 12, False),
 ]
 # mlp_fused (rows, d, d_mlp, act): the SigLIP text tower's rows, the CLIP
-# text tower's widths, and a ragged row count.
+# text tower's widths, ragged row counts (1000; 130,001 is no multiple of
+# the GEMM's 128-row tile), and the vision tower's rows (more than one chunk
+# of the bfloat16 kernel's mid scratch).
 MLP_SHAPES = [
     (131072, 768, 3072, "gelu_tanh"), (4096, 512, 2048, "quick_gelu"),
-    (1000, 64, 96, "gelu"),
+    (1000, 64, 96, "gelu"), (130001, 768, 3072, "gelu_tanh"),
+    (401408, 768, 3072, "gelu_tanh"),
 ]
 # layernorm ((rows..., d), eps): the serving bucket's and the B=4096 set
 # transformer's rows, the vision tower's rows with SigLIP's eps, a narrow
@@ -216,12 +229,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 # Kernel kinds for the profile's summary, by a substring of the kernel's
-# name; the first match wins, and what matches none is "other".
+# name; the first match wins, and what matches none is "other". The Hopper
+# GEMM's kernels are named by their epilogue (hg::gemm_kernel<BN, Epi>).
 KERNEL_KINDS = (
     ("masked_mha_fwd", ("masked_mha_fwd",)),
     ("masked_mha_bwd", ("masked_mha_bwd",)),
-    ("attn_block", ("attn_block",)),
-    ("mlp_fused", ("mlp_fused",)),
+    ("attn_block", ("attn_block", "AttnQkvEpi", "attn_core_kernel", "AttnOutEpi")),
+    ("mlp_fused", ("mlp_fused", "MlpMidEpi", "MlpOutEpi")),
     ("layernorm", ("layernorm_",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("random", ("distribution", "philox", "random")),
@@ -320,7 +334,9 @@ def _uniform(shape, bound, gen, dtype):
 def attn_block_inputs(shape, dtype, seed: int):
     """y ~ N(0, 1) as after a LayerNorm; weights uniform(+-1/sqrt(d)) as the
     towers' init; a key-padding mask that keeps the first few tokens of each
-    row, as the hash tokenizer pads a 64-token row, with row 0 fully masked."""
+    row, as the hash tokenizer pads a 64-token row, with row 0 fully masked
+    and, from B = 3 on, row 1 keeping only its first key and row 2 only its
+    last (the token SigLIP pools)."""
     b, l, d, h, causal = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bound = 1.0 / math.sqrt(d)
@@ -331,6 +347,11 @@ def attn_block_inputs(shape, dtype, seed: int):
     kept = torch.randint(2, max(3, l // 8) + 1, (b,), generator=gen, device="cuda")
     pad = torch.arange(l, device="cuda")[None, :] >= kept[:, None]
     pad[0] = True
+    if b >= 3:
+        pad[1] = True
+        pad[1, 0] = False
+        pad[2] = True
+        pad[2, -1] = False
     return y, wqkv, bqkv, wo, pad, h, causal
 
 
@@ -370,6 +391,38 @@ def mlp_bound(shape, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def gemm_l2_bytes(m, n, k):
+    """Bytes the bfloat16 GEMM of csrc/hopper_gemm.cuh reads through L2 for
+    C (m, n) = A (m, k) B (k, n): each (128, BN) output tile loads its A rows
+    and B columns over the whole of k (BN = 256 where it divides n, else
+    128)."""
+    bn = 256 if n % 256 == 0 else 128
+    return -(-m // 128) * -(-n // bn) * (128 + bn) * k * 2
+
+
+def mlp_l2_bytes(shape):
+    """(this design, the earlier design) bytes through L2 per bfloat16 launch:
+    two GEMMs (the mid tensor written once between them), against a block of
+    32 rows that re-read both weight matrices."""
+    rows, d, d_mlp, _ = shape
+    design = gemm_l2_bytes(rows, d_mlp, d) + gemm_l2_bytes(rows, d, d_mlp)
+    return design, -(-rows // 32) * 2 * d * d_mlp * 2
+
+
+def attn_block_l2_bytes(shape):
+    """(this design, the earlier design) bytes through L2 per bfloat16 launch:
+    the QKV and out-projection GEMMs and the attention phase's q, k, v boxes
+    (64 token rows, 64 columns at a time) and ctx, against a block of 64
+    token rows that streamed y for each of 3 H products, all the weights, and
+    its ctx rows once per 64 output columns."""
+    b, l, d, h, _ = shape
+    dh, rows = d // h, b * l
+    core = 3 * b * h * -(-dh // 64) * 64 * 64 * 2 + rows * d * 2
+    design = gemm_l2_bytes(rows, 3 * d, d) + core + gemm_l2_bytes(rows, d, d)
+    per_block = 3 * h * 64 * d * 2 + 4 * d * d * 2 + (d // 64) * 64 * d * 2
+    return design, -(-rows // 64) * per_block
+
+
 def layernorm_inputs(shape, dtype, seed: int):
     """x ~ N(0.5, 2) of ``shape``; weight 1 + 0.1 N(0, 1) and bias 0.1 N(0, 1)
     in float32, as the models keep them."""
@@ -406,21 +459,54 @@ def phase_env():
     return smi
 
 
+def _ptxas_by_function(log: str):
+    """nvcc's ``-Xptxas -v`` report as one entry a kernel: its (mangled)
+    name, registers, spill stores and loads, static shared memory."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"function": m.group(1)[:120]}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("static_smem", r"(\d+) bytes smem")):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
+
+
+def _dynamic_smem():
+    """Dynamic shared memory of the Hopper kernels, from their libraries."""
+    from outfitx_tpu_torch.ops import _build
+
+    out = {}
+    for name in ("mlp_fused", "attn_block"):
+        lib = _build.load(name)
+        out[f"{name}: gemm BN=256"] = lib.hopper_gemm_smem_bytes(256)
+        out[f"{name}: gemm BN=128"] = lib.hopper_gemm_smem_bytes(128)
+    lib = _build.load("attn_block")
+    for dh in (64, 128):
+        out[f"attn_block: attention Dh<={dh}"] = lib.attn_block_core_smem_bytes(dh)
+    return out
+
+
 def phase_build():
     from outfitx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build(KERNELS)
-    ptxas = {
-        name: [ln.strip() for ln in r["ptxas"].splitlines()
-               if "registers" in ln or "spill" in ln]
-        for name, r in report.items()
-    }
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
         "per_kernel_seconds": {n: r["seconds"] for n, r in report.items()},
-        "ptxas": ptxas,
+        "ptxas": {name: _ptxas_by_function(r["ptxas"]) for name, r in report.items()},
+        "dynamic_smem_bytes": _dynamic_smem(),
     })
 
 
@@ -709,6 +795,33 @@ def _ln_per_forward(cfg) -> int:
     return 2 * t.n_layers + (1 if t.final_norm else 0)
 
 
+def _block_route(cfg, reqs, cp_want):
+    """An engine whose set transformer runs the fused attention block
+    (``attn="block"``) at full width: its CP answers against the default
+    engine's, and exactly one ``attn_block`` launch a layer a forward (and no
+    ``masked_mha``)."""
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.attn_block import attn_block
+    from outfitx_tpu_torch.serve.app import build_engine
+
+    engine = build_engine(synthetic=True, model_cfg=cfg, device="cuda", attn="block")
+    cp, cp_batch = reqs[0], reqs[1]
+    torch.cuda.synchronize()
+    attn_block.launches = masked_mha.launches = 0
+    got = [engine.cp_score(o) for o in cp] + list(engine.cp_score_batch(cp_batch))
+    torch.cuda.synchronize()
+    launches, mha = attn_block.launches, masked_mha.launches
+    forwards = len(cp) + -(-len(cp_batch) // engine.cp_batch_bucket)
+    n_layers = cfg.transformer.n_layers
+    check(launches == n_layers * forwards and mha == 0,
+          f"attn route 'block': {launches} attn_block and {mha} masked_mha "
+          f"launches for {forwards} forwards of {n_layers} layers")
+    err = float(np.abs(np.asarray(got) - np.asarray(cp_want)).max())
+    check(err <= CP_PROB_TOL, f"attn route 'block': CP probability off by {err}")
+    return {"forwards": forwards, "attn_block_launches": launches,
+            "cp_prob_max_abs_err_vs_mha_route": err}
+
+
 def phase_serve():
     from outfitx_tpu_torch.core.config import OutfitXConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
@@ -778,6 +891,7 @@ def phase_serve():
         for g, w in zip(got["sim"], want["sim"])
     ]))
     check(overlap >= SIM_OVERLAP_MIN, f"similar items overlap {overlap}")
+    block = _block_route(cfg, reqs, got["cp"] + list(got["cp_batch"]))
 
     emit({
         "phase": "serve",
@@ -791,8 +905,10 @@ def phase_serve():
         "cp_prob_max_abs_err": cp_err, "cir_requests": len(cir_got),
         "cir_top1_agree": top1, "cir_top1_worst_rel_gap": worst_gap,
         "fitb_agree": fitb, "similar_overlap": overlap,
+        "attn_block_route": block,
     })
-    return gpu, {"masked_mha_fwd": launches, "layernorm": ln_launches}
+    return gpu, {"masked_mha_fwd": launches, "layernorm": ln_launches,
+                 "attn_block": block["attn_block_launches"]}
 
 
 def _cp_step_grads(model, catalog, split, device):
@@ -1234,6 +1350,7 @@ def phase_precompute():
     fused_runner.encode_batch(fused_batch)
     torch.cuda.synchronize()
     fused_batch_s = time.perf_counter() - t0
+    fused_profile = profile_call(lambda: fused_runner.encode_batch(fused_batch), top=12)
     del fused_runner
 
     # (c) the CLIP pair: ViT-B/32 at L=50 and the causal text tower at L=77,
@@ -1270,6 +1387,7 @@ def phase_precompute():
             "batch_s": fused_batch_s, "batch_items_per_s": FUSED_ITEMS / fused_batch_s,
             "min_cosine_vs_plain_mlp": cos_fused,
             "max_abs_diff_vs_plain_mlp": float(np.abs(fused_emb - emb[:FUSED_ITEMS]).max()),
+            "batch_profile": fused_profile,
         },
         "clip": {
             "items": clip_result["items"], "launches": clip_counts,
@@ -1782,8 +1900,10 @@ def _tower_timing():
         return F.linear(o.transpose(1, 2).reshape(b, l, d), wo_t)
 
     bound, bound_by = attn_block_bound(shape, dt)
+    l2, l2_pr3 = attn_block_l2_bytes(shape)
     out["attn_block"] = {
         "shape": list(shape[:4]),
+        "l2_bytes_per_launch": l2, "l2_bytes_per_launch_earlier_design": l2_pr3,
         "ms": cuda_ms(lambda: _attn_block_cuda(y, wqkv, bqkv, wo, pad, h, scale, causal), 5),
         "plain_ms": cuda_ms(
             lambda: attn_block_reference(y, wqkv, bqkv, wo, pad, h), 3, warmup=1
@@ -1802,8 +1922,10 @@ def _tower_timing():
             return F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2)
 
         bound, bound_by = mlp_bound(shape, dt)
+        l2, l2_pr3 = mlp_l2_bytes(shape)
         out[f"mlp_fused_{name}"] = {
             "shape": list(shape[:3]), "act": act,
+            "l2_bytes_per_launch": l2, "l2_bytes_per_launch_earlier_design": l2_pr3,
             "ms": cuda_ms(lambda: _mlp_fused_cuda(x, w1, b1, w2, b2, act), 3, warmup=1),
             "plain_ms": cuda_ms(
                 lambda: mlp_fused_reference(x, w1, b1, w2, b2, act=act), 3, warmup=1

@@ -36,11 +36,6 @@ namespace bg {
 
 constexpr int kRowPad = 8;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -173,208 +168,6 @@ __device__ __forceinline__ void block_gemm(float* C, int ldc, const float* A,
       for (int j = 0; j < 4; ++j) C[(r0 + i) * ldc + c0 + j] = acc[i][j];
   }
 }
-
-// ---- bfloat16 with both operands streamed from global memory ------------
-//
-// stream_gemm computes C (+)= A B for one block of 8 warps on the tensor
-// cores, where B (K, N) lies in global memory (row-major, row stride ldb) and
-// A (M, K) lies either in shared memory (AResident: row stride lda) or in
-// global memory as M rows given by a_row(r) (a pointer to row r's K
-// elements, or nullptr for a row of zeros). K is walked in chunks of
-// kStreamK columns: each chunk of A and B is copied into shared staging
-// buffers with 16-byte cp.async, coalesced, kStreamStages chunks in flight
-// (the copy of the next chunk overlaps the products of this one), and the
-// products read their fragments from shared memory. Each thread works out
-// once which pieces it copies: done per chunk, that index arithmetic costs
-// more instruction slots than the products. Accumulators stay in registers over the
-// whole of K: a warp owns up to MAXT strips of 16 x (16 WN) outputs, so
-// (M / 16) * ceil(N / 16 / WN) <= MAXT * 8 must hold. C is float in shared
-// memory and is written once at the end (read once at the start with
-// `accumulate`). M <= 64, N <= 128 and K are multiples of 16; N * 2 bytes,
-// ldb * 2 bytes and every source pointer are multiples of 16 bytes. stage_a
-// holds kStreamStages x (M, kStreamK + kRowPad) elements (unused when
-// AResident), stage_b kStreamStages x (kStreamK, N + kRowPad). All
-// kStreamThreads threads of the block call it; it ends with the staging
-// buffers free, and the caller synchronises before it reads C.
-
-constexpr int kStreamK = 64;
-// Chunks in flight. Three measured no faster than two on an H100 for the
-// tower MLP (the copies' latency is hidden with two), and cost a block of
-// the attention kernel its second place on the SM.
-constexpr int kStreamStages = 2;
-// The block's size, and the most 16-byte pieces a thread copies per chunk:
-// B (kStreamK, N <= 128) and A (M <= 64, kStreamK).
-constexpr int kStreamThreads = 256;
-constexpr int kStreamPiecesB = kStreamK * 128 / 8 / kStreamThreads;
-constexpr int kStreamPiecesA = 64 * kStreamK / 8 / kStreamThreads;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-__host__ __device__ constexpr size_t stream_stage_a_bytes(int M) {
-  return align128(sizeof(__nv_bfloat16) * kStreamStages * M * (kStreamK + kRowPad));
-}
-__host__ __device__ constexpr size_t stream_stage_b_bytes(int N) {
-  return align128(sizeof(__nv_bfloat16) * kStreamStages * kStreamK * (N + kRowPad));
-}
-
-template <int WN, int MAXT, bool AResident, typename ARow>
-__device__ __forceinline__ void stream_gemm(
-    float* C, int ldc, bool accumulate, const __nv_bfloat16* a_resident,
-    int lda, ARow a_row, const __nv_bfloat16* __restrict__ B, size_t ldb,
-    __nv_bfloat16* stage_a, __nv_bfloat16* stage_b, int M, int N, int K) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int tiles_n = N / 16;
-  const int strips_n = (tiles_n + WN - 1) / WN;
-  const int tasks = (M / 16) * strips_n;
-  const int lsa = kStreamK + kRowPad;
-  const int lsb = N + kRowPad;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXT][WN];
-#pragma unroll
-  for (int t = 0; t < MAXT; ++t) {
-    const int task = warp + t * n_warps;
-    if (task < tasks) {
-      const int r0 = (task / strips_n) * 16;
-      const int t0 = (task % strips_n) * WN;
-#pragma unroll
-      for (int n = 0; n < WN; ++n) {
-        if (t0 + n < tiles_n) {
-          if (accumulate)
-            wmma::load_matrix_sync(acc[t][n], C + r0 * ldc + (t0 + n) * 16, ldc,
-                                   wmma::mem_row_major);
-          else
-            wmma::fill_fragment(acc[t][n], 0.f);
-        }
-      }
-    }
-  }
-
-  // What this thread copies for every chunk, worked out once: up to
-  // kStreamPiecesB 16-byte pieces of B and kStreamPiecesA of A. A piece of
-  // chunk i lies k0 = i kStreamK rows (B) or columns (A) further on.
-  const bf16* b_src[kStreamPiecesB];
-  int b_dst[kStreamPiecesB], b_row[kStreamPiecesB];
-  const int b_per_row = N / 8;
-#pragma unroll
-  for (int t = 0; t < kStreamPiecesB; ++t) {
-    const int c = threadIdx.x + t * kStreamThreads;
-    const int r = c / b_per_row;
-    const int col = (c - r * b_per_row) * 8;
-    b_row[t] = r;  // >= kStreamK where the chunk has no such piece
-    b_src[t] = B + static_cast<size_t>(r) * ldb + col;
-    b_dst[t] = r * lsb + col;
-  }
-  const bf16* a_src[kStreamPiecesA];
-  int a_dst[kStreamPiecesA], a_col[kStreamPiecesA];
-  if (!AResident) {
-#pragma unroll
-    for (int t = 0; t < kStreamPiecesA; ++t) {
-      const int c = threadIdx.x + t * kStreamThreads;
-      const int r = c / (kStreamK / 8);
-      const int col = (c % (kStreamK / 8)) * 8;
-      const bf16* row = r < M ? a_row(r) : nullptr;
-      a_col[t] = r < M ? col : kStreamK;  // kStreamK: no such piece
-      a_src[t] = row == nullptr ? nullptr : row + col;
-      a_dst[t] = r * lsa + col;
-    }
-  }
-
-  // Copies chunk `chunk` (nothing when it lies past K) and closes a group.
-  auto copy_chunk = [&](int chunk) {
-    const int k0 = chunk * kStreamK;
-    const int kw = min(kStreamK, K - k0);
-    bf16* sb = stage_b + (chunk % kStreamStages) * kStreamK * lsb;
-#pragma unroll
-    for (int t = 0; t < kStreamPiecesB; ++t)
-      if (b_row[t] < kw)
-        cp_async16(sb + b_dst[t], b_src[t] + static_cast<size_t>(k0) * ldb);
-    if (!AResident) {
-      bf16* sa = stage_a + (chunk % kStreamStages) * M * lsa;
-#pragma unroll
-      for (int t = 0; t < kStreamPiecesA; ++t) {
-        if (a_col[t] < kw) {
-          if (a_src[t] != nullptr)
-            cp_async16(sa + a_dst[t], a_src[t] + k0);
-          else
-            *reinterpret_cast<uint4*>(sa + a_dst[t]) = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  const int n_chunks = (K + kStreamK - 1) / kStreamK;
-#pragma unroll
-  for (int st = 0; st < kStreamStages - 1; ++st) copy_chunk(st);
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    // One group a chunk, empty past the end: all but the newest
-    // kStreamStages - 1 groups are complete, so this chunk has arrived.
-    copy_chunk(chunk + kStreamStages - 1);
-    cp_async_wait<kStreamStages - 1>();
-    __syncthreads();
-    const int k0 = chunk * kStreamK;
-    const int kw = min(kStreamK, K - k0);
-    const bf16* sb = stage_b + (chunk % kStreamStages) * kStreamK * lsb;
-    const bf16* sa =
-        AResident ? a_resident + k0 : stage_a + (chunk % kStreamStages) * M * lsa;
-    const int la = AResident ? lda : lsa;
-#pragma unroll
-    for (int t = 0; t < MAXT; ++t) {
-      const int task = warp + t * n_warps;
-      if (task < tasks) {
-        const int r0 = (task / strips_n) * 16;
-        const int t0 = (task % strips_n) * WN;
-        for (int kk = 0; kk < kw; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, sa + r0 * la + kk, la);
-#pragma unroll
-          for (int n = 0; n < WN; ++n) {
-            if (t0 + n < tiles_n) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-              wmma::load_matrix_sync(b, sb + kk * lsb + (t0 + n) * 16, lsb);
-              wmma::mma_sync(acc[t][n], a, b, acc[t][n]);
-            }
-          }
-        }
-      }
-    }
-    // The buffer just read is the one the next copy goes into.
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int t = 0; t < MAXT; ++t) {
-    const int task = warp + t * n_warps;
-    if (task < tasks) {
-      const int r0 = (task / strips_n) * 16;
-      const int t0 = (task % strips_n) * WN;
-#pragma unroll
-      for (int n = 0; n < WN; ++n) {
-        if (t0 + n < tiles_n)
-          wmma::store_matrix_sync(C + r0 * ldc + (t0 + n) * 16, acc[t][n], ldc,
-                                  wmma::mem_row_major);
-      }
-    }
-  }
-}
-
-struct NoRows {
-  __device__ const __nv_bfloat16* operator()(int) const { return nullptr; }
-};
 
 // Masked row softmax of one score row by one warp, as the set-attention
 // kernel does it: scale, where-SET the key-padding and causal masks to -1e9

@@ -38,6 +38,7 @@ from outfitx_tpu_torch.core import rng as rng_ops
 from outfitx_tpu_torch.core.config import OutfitXConfig
 from outfitx_tpu_torch.core.device import resolve_device
 from outfitx_tpu_torch.ops import layer_norm, masked_mha, resolve_activation
+from outfitx_tpu_torch.ops.attn_block import attn_block
 
 
 def _dropout(x, rate: float, gen: Optional[torch.Generator]):
@@ -90,10 +91,36 @@ class _SelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = _Linear(d, d)
+        self._block = {}  # dtype -> (parameter versions, block weights)
 
-    def forward(self, y, pad_mask):
+    def _block_weights(self, dtype):
+        """The block kernel's layouts in ``dtype``: wqkv (d, 3, d) and wo
+        (d, d) as (in, out), bqkv (3, d). Made once and cached; made again
+        after the parameters change in place (a state dict load, an
+        optimizer step)."""
+        params = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight)
+        versions = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._block.get(dtype)
+        if hit is None or hit[0] != versions:
+            d = self.in_proj_weight.shape[1]
+            with torch.no_grad():
+                wqkv = self.in_proj_weight.view(3, d, d).permute(2, 0, 1)
+                weights = tuple(
+                    t.to(dtype).contiguous()
+                    for t in (wqkv, self.in_proj_bias.view(3, d), self.out_proj.weight.T)
+                )
+            hit = self._block[dtype] = (versions, weights)
+        return hit[1]
+
+    def forward(self, y, pad_mask, block: bool = False):
         b, s, d = y.shape
         h = self.n_heads
+        if block:
+            # The JAX package's OUTFITX_ATTN_BLOCK=fused route: the block's
+            # float32 output cast to y's dtype, then the out-projection bias.
+            wqkv, bqkv, wo = self._block_weights(y.dtype)
+            o = attn_block(y, wqkv, bqkv, wo, pad_mask, h).to(y.dtype)
+            return o + self.out_proj.bias.to(y.dtype)
         qkv = _dense(y, self.in_proj_weight, self.in_proj_bias)  # (B, S, 3d)
         qkv = qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
         o = masked_mha(qkv[0], qkv[1], qkv[2], pad_mask)  # (B, H, S, Dh)
@@ -102,8 +129,9 @@ class _SelfAttention(nn.Module):
 
 
 class _EncoderLayer(nn.Module):
-    def __init__(self, cfg: OutfitXConfig):
+    def __init__(self, cfg: OutfitXConfig, attn: str = "mha"):
         super().__init__()
+        self.attn = attn
         d = cfg.d_embed
         t = cfg.transformer
         self.norm_first = t.norm_first
@@ -122,7 +150,8 @@ class _EncoderLayer(nn.Module):
     def forward(self, x, pad_mask, gen=None):
         rate = self.dropout if self.training else 0.0
         y = self.norm1(x) if self.norm_first else x
-        x = x + _dropout(self.self_attn(y, pad_mask), rate, gen)
+        block = self.attn == "block" and not self.training
+        x = x + _dropout(self.self_attn(y, pad_mask, block), rate, gen)
         if not self.norm_first:
             x = self.norm1(x)
         y = self.norm2(x) if self.norm_first else x
@@ -134,10 +163,10 @@ class _EncoderLayer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: OutfitXConfig):
+    def __init__(self, cfg: OutfitXConfig, attn: str = "mha"):
         super().__init__()
         self.layers = nn.ModuleList(
-            _EncoderLayer(cfg) for _ in range(cfg.transformer.n_layers)
+            _EncoderLayer(cfg, attn) for _ in range(cfg.transformer.n_layers)
         )
         self.norm = _LayerNorm(cfg.d_embed) if cfg.transformer.final_norm else None
 
@@ -155,7 +184,11 @@ class OutfitXModel(nn.Module):
     Weights are random, drawn from ``seed`` with the JAX package's
     distributions (not its numbers), until a state dict is loaded. With
     ``trainable`` the parameters take gradients; otherwise (serving) none
-    does.
+    does. ``attn="block"`` runs each layer's attention as one fused block
+    (``ops.attn_block``: QKV projection, masked attention, out-projection)
+    when the model is not training, as the JAX package's
+    ``OUTFITX_ATTN_BLOCK=fused`` does; the default ``"mha"`` runs the
+    projections as products around ``masked_mha``.
     """
 
     def __init__(
@@ -165,12 +198,15 @@ class OutfitXModel(nn.Module):
         device: str | torch.device = "cuda",
         seed: int = 0,
         trainable: bool = False,
+        attn: str = "mha",
     ):
         super().__init__()
+        if attn not in ("mha", "block"):
+            raise ValueError(f"attn must be 'mha' or 'block', got {attn!r}")
         self.cfg = cfg = cfg or OutfitXConfig()
         dev = resolve_device(device)
         d = cfg.d_embed
-        self.transformer_encoder = _Encoder(cfg)
+        self.transformer_encoder = _Encoder(cfg, attn)
         self.outfit_token = nn.Parameter(torch.empty(d))
         self.target_item_image_emb = nn.Parameter(torch.empty(d // 2))
         # Index 0 is the reference's dropout slot; the head's dropout is

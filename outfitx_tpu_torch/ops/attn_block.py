@@ -9,6 +9,10 @@ with the same roundings, which is also what the kernel is held against on
 the card. Weights keep the JAX layouts: ``wqkv (d, 3, d)`` and ``wo (d, d)``
 as (in, out), ``bqkv (3, d)``. The output is float32 whatever the input, and
 the out-projection bias stays with the caller.
+
+In bfloat16 the kernel runs three phases (the QKV product, attention per
+batch row and head, the out-projection) that hand over through two scratch
+tensors this wrapper allocates: q|k|v (B L, 3 d) and ctx (B, L, d).
 """
 
 from __future__ import annotations
@@ -91,19 +95,22 @@ def _attn_block_cuda(y, wqkv, bqkv, wo, pad_mask, n_heads, scale, causal):
         raise ValueError("pad_mask must be contiguous on the same device as y")
     fn = _launch.bind(
         _NAME,
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     )
     out = torch.empty((b, l, d), dtype=torch.float32, device=y.device)
-    # The bfloat16 kernel parks ctx (every head's P v, rounded) here between
-    # its two phases; the float32 kernel needs no scratch.
-    ctx = torch.empty_like(y) if y.dtype == torch.bfloat16 else None
+    # The bfloat16 kernel's phases hand over through these: q|k|v of every
+    # head (biased, rounded), and ctx (every head's P v, rounded). The
+    # float32 kernel needs no scratch.
+    bf16 = y.dtype == torch.bfloat16
+    qkv = torch.empty((b * l, 3 * d), dtype=y.dtype, device=y.device) if bf16 else None
+    ctx = torch.empty_like(y) if bf16 else None
     stream = torch.cuda.current_stream(y.device).cuda_stream
     err = fn(
         y.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-        pad_mask.data_ptr(), None if ctx is None else ctx.data_ptr(),
-        out.data_ptr(), b, l, d, n_heads, float(scale),
-        int(causal), _launch.DTYPE_CODES[y.dtype], stream,
+        pad_mask.data_ptr(), None if qkv is None else qkv.data_ptr(),
+        None if ctx is None else ctx.data_ptr(), out.data_ptr(), b, l, d,
+        n_heads, float(scale), int(causal), _launch.DTYPE_CODES[y.dtype], stream,
     )
     if err != 0:
         raise RuntimeError(f"{_NAME} launch failed: cudaError {err}")

@@ -6,6 +6,12 @@ to the hand-written kernel ``csrc/mlp_fused.cu`` (the port of
 plain PyTorch version with the same roundings, which is also what the kernel
 is held against on the card. Weights keep the JAX layouts: ``w1 (d, d_mlp)``
 and ``w2 (d_mlp, d)`` as (in, out).
+
+In bfloat16 the kernel is two passes of a Hopper GEMM (``csrc/
+hopper_gemm.cuh``): the first writes the rounded mid tensor to a scratch
+tensor that this wrapper allocates, the second reads it back. Rows go in
+chunks of ``mid_rows(rows, d_mlp)``, so the scratch stays under
+``MID_SCRATCH_BYTES``. float32 keeps the mid tensor on chip and needs none.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from outfitx_tpu_torch.ops.activations import TOWER_ACTIVATIONS
 _NAME = "mlp_fused"
 _ACT_CODES = {"quick_gelu": 0, "gelu_tanh": 1, "gelu": 2}
 MAX_D = 768
+MID_SCRATCH_BYTES = 512 << 20
+_TILE_ROWS = 128  # the GEMM's row tile: a chunk of rows is whole tiles
 
 
 def _act_fn(act: str):
@@ -41,6 +49,14 @@ def mlp_fused_reference(x, w1, b1, w2, b2, *, act: str = "quick_gelu"):
     w1, b1, w2, b2 = (t.to(dt).float() for t in (w1, b1, w2, b2))
     mid = fn(torch.matmul(x.float(), w1) + b1).to(dt)
     return (torch.matmul(mid.float(), w2) + b2).to(dt)
+
+
+def mid_rows(rows: int, d_mlp: int) -> int:
+    """Height of the bfloat16 kernel's mid scratch: every row where (rows,
+    d_mlp) bfloat16 fits in ``MID_SCRATCH_BYTES``, else the most whole row
+    tiles that do (at least one)."""
+    cap = MID_SCRATCH_BYTES // (2 * d_mlp) // _TILE_ROWS * _TILE_ROWS
+    return min(rows, max(cap, _TILE_ROWS))
 
 
 def _wants_kernel(t: torch.Tensor) -> bool:
@@ -68,14 +84,17 @@ def _mlp_fused_cuda(x, w1, b1, w2, b2, act: str):
         raise ValueError("mlp_fused kernel takes at least one row")
     _launch.check_operands(_NAME, x2, x=x2, w1=w1, b1=b1, w2=w2, b2=b2)
     fn = _launch.bind(
-        _NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _NAME, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
+    rows = x2.shape[0]
     out = torch.empty_like(x2)
+    n_mid = mid_rows(rows, d_mlp) if dt == torch.bfloat16 else 0
+    mid = torch.empty((n_mid, d_mlp), dtype=dt, device=x.device) if n_mid else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), x2.shape[0], d, d_mlp,
-        _ACT_CODES[act], _launch.DTYPE_CODES[dt], stream,
+        b2.data_ptr(), out.data_ptr(), None if mid is None else mid.data_ptr(),
+        n_mid, rows, d, d_mlp, _ACT_CODES[act], _launch.DTYPE_CODES[dt], stream,
     )
     if err != 0:
         raise RuntimeError(f"{_NAME} launch failed: cudaError {err}")

@@ -278,6 +278,7 @@ def build_engine(
     shard_catalog: bool = False,
     spare_capacity: int = 0,
     device: str = "cuda",
+    attn: str = "mha",
 ) -> ServingEngine:
     """Build a serving engine.
 
@@ -289,6 +290,8 @@ def build_engine(
     where they exist, and are random (seed 0) otherwise; ``mock`` builds no
     model and touches no device. ``quantized`` serves whole-catalog
     retrieval from the int8 catalog and drops the per-category pools.
+    ``attn="block"`` serves the set transformer through the fused attention
+    block (``OutfitXModel``'s ``attn``).
     """
     if shard_catalog or quantize_model:
         asked = [
@@ -378,6 +381,7 @@ def build_engine(
         cp_split=cp_split,
         cir_split=cir_split,
         fitb_split=fitb_split,
+        attn=attn,
     )
 
 

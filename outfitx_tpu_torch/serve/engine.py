@@ -129,6 +129,9 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     cp_batch_bucket: int = 8
     # Live updates are padded to this many rows per scatter.
     update_bucket: int = 1024
+    # The set transformer's attention: "mha", or "block" for the fused
+    # attention block (OutfitXModel's attn).
+    attn: str = "mha"
 
     def __post_init__(self):
         unported = {
@@ -205,7 +208,7 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     def _model(self, state_dict) -> Optional[OutfitXModel]:
         if state_dict is None:
             return None
-        model = OutfitXModel(self.model_cfg, device=self._dev)
+        model = OutfitXModel(self.model_cfg, device=self._dev, attn=self.attn)
         model.load_state_dict(state_dict, strict=True)
         return model.eval()
 

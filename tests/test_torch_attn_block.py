@@ -159,3 +159,46 @@ def test_kernel_wrapper_rejects_noncontiguous(monkeypatch):
     y, wqkv, bqkv, wo, pad = _torch(_inputs(2, 16, 64))
     with pytest.raises(ValueError, match="contiguous"):
         attn_block(y.transpose(0, 1).contiguous().transpose(0, 1), wqkv, bqkv, wo, pad, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrapper_hands_bfloat16_its_scratch(monkeypatch, dtype):
+    """The bfloat16 kernel's phases hand over through two scratch tensors,
+    q|k|v (B L, 3 d) and ctx (B, L, d); float32 gets none. One call is one
+    launch."""
+    calls = []
+    sizes = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append((tuple(t.shape), t.dtype))
+        return t
+
+    def bind(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append(args)
+            return 0
+        return fn
+
+    monkeypatch.setattr(ab, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(ab._launch, "bind", bind)
+    monkeypatch.setattr(ab.torch, "empty", empty)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})
+    )
+    y, wqkv, bqkv, wo, pad = _torch(_inputs(5, 9, 128), dtype)
+    before = attn_block.launches
+    out = attn_block(y, wqkv, bqkv, wo, pad, 2)
+    assert out.shape == (5, 9, 128) and out.dtype == torch.float32
+    assert attn_block.launches == before + 1
+    (args,) = calls
+    qkv, ctx = args[5], args[6]
+    assert args[8:12] == (5, 9, 128, 2)
+    if dtype == torch.bfloat16:
+        assert qkv is not None and ctx is not None
+        assert ((45, 384), torch.bfloat16) in sizes
+    else:
+        assert qkv is None and ctx is None
+        assert sizes == [((5, 9, 128), torch.float32)]

@@ -142,3 +142,57 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(
     w2, b2 = torch.zeros((d_mlp, d)), torch.zeros(d)
     with pytest.raises(error):
         mlp_fused(x, w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize(
+    "rows, d_mlp, want",
+    [
+        (1000, 96, 1000),  # fits whole
+        (4096, 2048, 4096),  # the CLIP text tower's batch fits whole
+        (131072, 3072, 87296),  # text rows: whole 128-row tiles under 512 MiB
+        (401408, 3072, 87296),  # vision rows: the same chunk, five chunks
+        (5000, 1 << 22, 128),  # one tile at the least
+    ],
+)
+def test_mid_scratch_rows(rows, d_mlp, want):
+    assert mlp_mod.mid_rows(rows, d_mlp) == want
+
+
+def _fake_launch(monkeypatch, module):
+    """Replaces the kernel with a recorder of its C arguments (success)."""
+    calls = []
+
+    def bind(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append(args)
+            return 0
+        return fn
+
+    monkeypatch.setattr(module, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(module._launch, "bind", bind)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})
+    )
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrapper_hands_bfloat16_its_mid_scratch_in_chunks(monkeypatch, dtype):
+    """bfloat16 gets a (mid_rows, d_mlp) scratch, here smaller than the rows
+    so that the kernel walks them in chunks; float32 gets none. One call is
+    one launch whatever the chunks."""
+    calls = _fake_launch(monkeypatch, mlp_mod)
+    monkeypatch.setattr(mlp_mod, "MID_SCRATCH_BYTES", 3 * 128 * 96 * 2)
+    x, w1, b1, w2, b2 = _torch(_inputs((1000, 64), 96), dtype)
+    before = mlp_fused.launches
+    out = mlp_fused(x, w1, b1, w2, b2, act="gelu_tanh")
+    assert out.shape == x.shape and out.dtype == dtype
+    assert mlp_fused.launches == before + 1
+    (args,) = calls
+    mid, mid_rows, rows, d, d_mlp, act, code = args[6:13]
+    assert (rows, d, d_mlp, act) == (1000, 64, 96, 1)
+    if dtype == torch.bfloat16:
+        assert mid is not None and mid_rows == 384 and code == 1
+    else:
+        assert mid is None and mid_rows == 0 and code == 0
