@@ -12,12 +12,16 @@ Phases, each printing one JSON line:
             shared memory;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the set transformer's shapes and at the towers' (attention at
-            L=196, 50, 77 causal and 256; attn_block at the SigLIP text
+            L=196, 50, 77 causal and 256, and at the shapes that test the
+            bfloat16 forward's tiling: a ragged last pack of slabs at L=17,
+            L=21, 32, 33 (3, 2, 1 slabs a tile), 64, 65 and 129 (N=128 and
+            256 score widths), 256 at Dh=128, Dh=16; attn_block at the SigLIP text
             tower's 2048x64x768 with fully and almost fully masked rows, and
             at B=2047; mlp_fused at 131072 and 401408 (vision) x768x3072 and
             at 130,001 rows; layernorm at 136, 69,632 and 401,408 rows,
             ragged widths, constant and 1e4 rows, and its closed-form
-            backward against autograd);
+            backward against autograd); the stream a wrapper hands its
+            kernel is PyTorch's current one;
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
@@ -60,10 +64,12 @@ Phases, each printing one JSON line:
             live update of 1,500 rows against a full requantisation;
 9. timing   kernel, plain version and the PyTorch library call at the
             serving bucket (B=8), the training and throughput shapes and
-            the towers' shapes at batch 2048 (with the bytes that attn_block
-            and mlp_fused read through L2 per launch, beside the earlier
-            one-block design's); the CP forward's outfits/s at B=4096 and the cp_score
-            latency.
+            the towers' shapes at batch 2048 (attention also at the CLIP
+            towers' L=50 and causal L=77; the bytes that attn_block and
+            mlp_fused read through L2 per launch, beside the earlier
+            one-block design's); the CP forward's outfits/s at B=4096, the
+            cp_score latency, and the host microseconds per call of the
+            layernorm wrapper and of F.layer_norm at the serving bucket.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -127,6 +133,26 @@ TOWER_MHA_SHAPES = [
     ((64, 12, 196, 64), False), ((64, 12, 50, 64), False),
     ((64, 8, 77, 64), True), ((2, 4, 256, 128), False),
 ]
+# The bfloat16 forward's tiling (ops/attention.py tile_plan): B*H = 35 slabs
+# at L=17 leave the last pack of 3 ragged; L=21, 32 and 33 pack 3, 2 and 1
+# slabs a tile; L=64 is the last packed length, 65 and 129 the first at
+# score widths 128 and 256; L=256 at Dh=128 causal; Dh=16 (one k16 step).
+FWD_TILE_SHAPES = [
+    ((7, 5, 17, 96), False), ((7, 5, 17, 96), True), ((5, 4, 21, 64), False),
+    ((6, 4, 32, 32), True), ((4, 3, 33, 48), False), ((4, 3, 64, 64), True),
+    ((4, 3, 65, 64), False), ((4, 3, 129, 64), True), ((2, 4, 256, 128), True),
+    ((5, 3, 17, 16), False),
+]
+# The forward's timing rows at the towers' lengths, batch 2048: SigLIP
+# ViT-B/16, CLIP ViT-B/32, CLIP text (causal).
+TOWER_MHA_TIMING = [
+    ("vision_tower", (2048, 12, 196, 64), False),
+    ("clip_vision_tower", (2048, 12, 50, 64), False),
+    ("clip_text_tower", (2048, 8, 77, 64), True),
+]
+# Host time of one layernorm launch at the serving bucket, by the host clock
+# over this many calls with one synchronisation at the end.
+HOST_CALLS = 2000
 # attn_block (B, L, d, H, causal): the SigLIP text tower, the set transformer
 # in eval, a small causal case, and the tower's shape at a batch whose token
 # rows (131,008) leave the GEMM's last 128-row tile ragged.
@@ -493,6 +519,13 @@ def _dynamic_smem():
     lib = _build.load("attn_block")
     for dh in (64, 128):
         out[f"attn_block: attention Dh<={dh}"] = lib.attn_block_core_smem_bytes(dh)
+    lib = _build.load("masked_mha_fwd")
+    for dh in (64, 128):
+        out[f"masked_mha_fwd: packed, Dh<={dh}"] = lib.masked_mha_fwd_smem_bytes(dh, 32)
+        for keys in (64, 128, 256):
+            out[f"masked_mha_fwd: query tiles, Dh<={dh}, keys={keys}"] = (
+                lib.masked_mha_fwd_smem_bytes(dh, keys)
+            )
     return out
 
 
@@ -539,7 +572,7 @@ def _tower_kernel_checks():
     from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
 
     mha_cases, block_cases, mlp_cases = [], [], []
-    for si, (shape, causal) in enumerate(TOWER_MHA_SHAPES):
+    for si, (shape, causal) in enumerate(TOWER_MHA_SHAPES + FWD_TILE_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pad = attention_inputs(shape, dtype, seed=20 + si)
             got = _masked_mha_cuda(q, k, v, pad, causal)
@@ -659,6 +692,30 @@ def _layernorm_checks():
     return cases, special, bwd
 
 
+def _stream_check():
+    """The stream handle the wrappers hand their kernels is PyTorch's
+    current stream, on the default stream and inside ``torch.cuda.stream``;
+    a launch there agrees with the plain version."""
+    from outfitx_tpu_torch.ops import _launch
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+
+    dev = torch.cuda.current_device()
+    default_ok = _launch.current_stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream()
+    q, k, v, pad = attention_inputs((8, 16, 17, 96), torch.bfloat16, seed=90)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        side_ok = _launch.current_stream(dev) == side.cuda_stream
+        got = _masked_mha_cuda(q, k, v, pad, False)
+    torch.cuda.current_stream().wait_stream(side)
+    err, ok = _compare(got, mha_reference(q, k, v, pad), torch.bfloat16)
+    torch.cuda.synchronize()
+    out = {"default_stream": default_ok, "side_stream": side_ok,
+           "side_stream_max_abs_err": err}
+    check(default_ok and side_ok and ok, f"kernel launch stream: {out}")
+    return out
+
+
 def phase_kernels():
     from outfitx_tpu_torch.ops.attention import (
         _masked_mha_bwd_cuda,
@@ -709,6 +766,7 @@ def phase_kernels():
         "masked_mha_bwd": bwd_cases, "attn_block": block_cases,
         "mlp_fused": mlp_cases, "layernorm": ln_cases,
         "layernorm_special_rows": ln_special, "layernorm_backward": ln_bwd,
+        "launch_stream": _stream_check(),
     })
 
     def main_err(cases, shape):
@@ -1868,22 +1926,28 @@ def _tower_timing():
     dt = torch.bfloat16
     out = {}
 
-    shape = (2048, 12, 196, 64)  # the vision tower's attention
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
-    pad = torch.zeros((shape[0], shape[2]), dtype=torch.bool, device="cuda")
-    keep = ~pad[:, None, None, :]
-    bound, bound_by = attention_bound(shape, dt)
-    out["masked_mha_fwd"] = {
-        "shape": list(shape),
-        "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, False), 5),
-        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad), 3, warmup=1),
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 5
-        ),
-        "bound_ms": bound, "bound_by": bound_by,
-    }
-    del q, k, v
+    # The towers' attention, unpadded as the vision towers call it; SDPA
+    # gets the same function as a bool mask (causal: the lower triangle).
+    for name, shape, causal in TOWER_MHA_TIMING:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
+        pad = torch.zeros((shape[0], shape[2]), dtype=torch.bool, device="cuda")
+        keep = ~pad[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(
+                (shape[2], shape[2]), dtype=torch.bool, device="cuda"
+            ).tril()
+        bound, bound_by = attention_bound(shape, dt)
+        out[f"masked_mha_fwd_{name}"] = {
+            "shape": list(shape), "causal": causal,
+            "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, causal), 5),
+            "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad, causal), 3, warmup=1),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 5
+            ),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        del q, k, v
 
     shape = ATTN_BLOCK_SHAPES[0]  # the text tower's block
     y, wqkv, bqkv, wo, pad, h, causal = attn_block_inputs(shape, dt, seed=12)
@@ -1966,6 +2030,42 @@ def _layernorm_timing():
     return out
 
 
+def _host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls back to back
+    by the host clock, one synchronisation at the end."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _layernorm_host_time():
+    """The layernorm wrapper against ``F.layer_norm`` at the serving bucket
+    (136, 1536) bf16, host microseconds per call, in turns (library,
+    kernel, kernel, library)."""
+    from outfitx_tpu_torch.ops.layernorm import _layer_norm_cuda
+
+    x, weight, bias = layernorm_inputs((136, 1536), torch.bfloat16, seed=15)
+    w16, b16 = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+    def kernel():
+        _layer_norm_cuda(x, weight, bias, 1e-5)
+
+    def library():
+        F.layer_norm(x, (1536,), w16, b16, 1e-5)
+
+    lib_a, k_a, k_b, lib_b = (_host_us(f) for f in (library, kernel, kernel, library))
+    return {
+        "shape": [136, 1536], "calls": HOST_CALLS,
+        "layernorm_us": (k_a + k_b) / 2, "f_layer_norm_us": (lib_a + lib_b) / 2,
+        "layernorm_us_turns": [k_a, k_b], "f_layer_norm_us_turns": [lib_a, lib_b],
+    }
+
+
 def phase_timing(engine):
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
@@ -2009,6 +2109,7 @@ def phase_timing(engine):
     lat = np.asarray(lat[10:])
     towers = _tower_timing()
     layernorm = _layernorm_timing()
+    host = _layernorm_host_time()
     emit({
         "phase": "timing",
         "masked_mha_fwd": per_shape,
@@ -2024,8 +2125,9 @@ def phase_timing(engine):
         "cp_score_p50_ms": float(np.percentile(lat, 50)),
         "cp_score_p99_ms": float(np.percentile(lat, 99)),
         "cp_score_samples": int(lat.size),
+        "layernorm_host_us_per_call": host,
     })
-    return per_shape, bwd, towers, layernorm
+    return per_shape, bwd, towers, layernorm, host
 
 
 def main() -> int:
@@ -2047,11 +2149,13 @@ def main() -> int:
     precompute_launches = phase_precompute()
     http_launches = phase_http()
     phase_retrieval()
-    fwd, bwd, towers, layernorm = phase_timing(engine)
+    fwd, bwd, towers, layernorm, host = phase_timing(engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
             "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
-            "at_vision_tower": towers["masked_mha_fwd"],
+            "at_vision_tower": towers["masked_mha_fwd_vision_tower"],
+            "at_clip_vision_tower": towers["masked_mha_fwd_clip_vision_tower"],
+            "at_clip_text_tower": towers["masked_mha_fwd_clip_text_tower"],
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
             "at_b8": bwd[8],
@@ -2064,6 +2168,7 @@ def main() -> int:
             "at_b4096": layernorm["69632x1536"], "at_b3072": layernorm["52224x1536"],
             "at_vision_tower": layernorm["401408x768"],
             "at_text_tower": layernorm["131072x768"],
+            "host_us_per_call_at_serving_bucket": host,
         }),
     ]
     by_path = {

@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
       for (int i = 0; i < 3; ++i)
-        bg::block_gemm<false, 2>(
+        bg::block_gemm<false>(
             sqkv + i * head, lay.ldh, sy, lay.ldy,
             wqkv + static_cast<size_t>(k0) * 3 * d + i * d + j * Dh, 3 * d, M,
             Dh, kYChunk, k0 > 0);
@@ -143,10 +143,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     // Scores of each batch row: q k^T, k read column-major.
     for (int e = 0; e < TB; ++e)
-      bg::block_gemm<true, 1>(ss + e * Lp * lay.lds, lay.lds,
-                              sqkv + e * Lp * lay.ldh, lay.ldh,
-                              sqkv + head + e * Lp * lay.ldh, lay.ldh, Lp, Lp,
-                              Dh, false);
+      bg::block_gemm<true>(ss + e * Lp * lay.lds, lay.lds,
+                           sqkv + e * Lp * lay.ldh, lay.ldh,
+                           sqkv + head + e * Lp * lay.ldh, lay.ldh, Lp, Lp,
+                           Dh, false);
     __syncthreads();
     for (int r = warp; r < M; r += kThreads / 32) {
       const int e = r / Lp;
@@ -161,16 +161,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     // ctx = P v into q's place (q is done with).
     for (int e = 0; e < TB; ++e)
-      bg::block_gemm<false, 1>(sqkv + e * Lp * lay.ldh, lay.ldh,
-                               ss + e * Lp * lay.lds, lay.lds,
-                               sqkv + 2 * head + e * Lp * lay.ldh, lay.ldh, Lp,
-                               Dh, Lp, false);
+      bg::block_gemm<false>(sqkv + e * Lp * lay.ldh, lay.ldh,
+                            ss + e * Lp * lay.lds, lay.lds,
+                            sqkv + 2 * head + e * Lp * lay.ldh, lay.ldh, Lp,
+                            Dh, Lp, false);
     __syncthreads();
     // out (+)= ctx Wo[head j rows], kOutChunk columns at a time.
     for (int n0 = 0; n0 < d; n0 += kOutChunk) {
-      bg::block_gemm<false, 1>(so, lay.ldo, sqkv, lay.ldh,
-                               wo + static_cast<size_t>(j) * Dh * d + n0, d, M,
-                               kOutChunk, Dh, false);
+      bg::block_gemm<false>(so, lay.ldo, sqkv, lay.ldh,
+                            wo + static_cast<size_t>(j) * Dh * d + n0, d, M,
+                            kOutChunk, Dh, false);
       __syncthreads();
       for (int e = threadIdx.x; e < M * kOutChunk; e += kThreads) {
         const int r = e / kOutChunk;

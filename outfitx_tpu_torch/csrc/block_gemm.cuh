@@ -1,36 +1,27 @@
-// Block-level building blocks shared by the tower kernels (sm_90a):
-// a matrix product of shared-memory tiles done by all threads of a block,
-// a guarded tile loader, and the float <-> element conversions.
+// Block-level building blocks of the float32 kernels (sm_90a): a matrix
+// product of shared-memory tiles done by all threads of a block, a guarded
+// tile loader, the masked row softmax, and the float <-> element conversions.
 //
-// block_gemm computes C (+)= A B for one block:
-//   C  float, row-major (M, N), row stride ldc, in shared memory;
-//   A  T, row-major (M, K), row stride lda, in shared memory;
-//   B  T, (K, N): row-major with row stride ldb, or, with BColMajor,
-//      stored as (N, K) row-major (so B = stored^T, as K in Q K^T); it may
-//      lie in shared or in global memory (weights are read straight from
-//      global memory: they are shared by every block and stay in L2).
-// M, N and K are multiples of 16. Accumulation is float32 in both forms:
-//   T = __nv_bfloat16: nvcuda::wmma m16n16k16 on the tensor cores; a warp
-//     owns a strip of 16 x (16 NT) outputs, so one A fragment feeds NT
-//     products; accumulators pass through C between calls;
-//   T = float: scalar FMAs on the CUDA cores, a 4 x 4 micro-tile a thread
-//     (full float32, no TF32).
-// The function does not synchronise: the caller puts __syncthreads()
-// between the writes of A, B, C and the call, and after it.
+// block_gemm computes C (+)= A B for one block, float32 throughout:
+//   C  row-major (M, N), row stride ldc, in shared memory;
+//   A  row-major (M, K), row stride lda, in shared memory;
+//   B  (K, N): row-major with row stride ldb, or, with BColMajor, stored as
+//      (N, K) row-major (so B = stored^T, as K in Q K^T); it may lie in
+//      shared or in global memory (weights are read straight from global
+//      memory: they are shared by every block and stay in L2).
+// M and N are multiples of 4: scalar FMAs on the CUDA cores, a 4 x 4
+// micro-tile a thread (full float32, no TF32). The function does not
+// synchronise: the caller puts __syncthreads() between the writes of A, B,
+// C and the call, and after it. Shared tiles pad each row by kRowPad
+// elements, which spreads the rows of a micro-tile over the banks.
 //
-// Alignment the wmma form needs (the callers' layouts keep it): every tile
-// origin 32-byte aligned, row strides a multiple of 16 bytes. Shared tiles
-// pad each row by kRowPad elements, which keeps both and spreads the rows of
-// a fragment over the banks.
+// The bfloat16 kernels run on the tensor cores through hopper_gemm.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace bg {
 
@@ -74,62 +65,8 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, int sld,
   }
 }
 
-// ---- bfloat16: tensor cores through wmma --------------------------------
-template <bool BColMajor, int NT>
-__device__ __forceinline__ void block_gemm(float* C, int ldc,
-                                           const __nv_bfloat16* A, int lda,
-                                           const __nv_bfloat16* B, int ldb,
-                                           int M, int N, int K,
-                                           bool accumulate) {
-  using namespace nvcuda;
-  using BLayout =
-      typename std::conditional<BColMajor, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int tiles_n = N / 16;
-  const int strips_n = (tiles_n + NT - 1) / NT;
-  const int tasks = (M / 16) * strips_n;
-  for (int task = warp; task < tasks; task += n_warps) {
-    const int r0 = (task / strips_n) * 16;
-    const int t0 = (task % strips_n) * NT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t0 + t < tiles_n) {
-        if (accumulate)
-          wmma::load_matrix_sync(acc[t], C + r0 * ldc + (t0 + t) * 16, ldc,
-                                 wmma::mem_row_major);
-        else
-          wmma::fill_fragment(acc[t], 0.f);
-      }
-    }
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + r0 * lda + k, lda);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        if (t0 + t < tiles_n) {
-          const int c0 = (t0 + t) * 16;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-          const __nv_bfloat16* bp =
-              BColMajor ? B + static_cast<size_t>(c0) * ldb + k
-                        : B + static_cast<size_t>(k) * ldb + c0;
-          wmma::load_matrix_sync(b, bp, ldb);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t0 + t < tiles_n)
-        wmma::store_matrix_sync(C + r0 * ldc + (t0 + t) * 16, acc[t], ldc,
-                                wmma::mem_row_major);
-    }
-  }
-}
-
 // ---- float32: scalar FMAs, 4 x 4 outputs a thread -----------------------
-template <bool BColMajor, int NT>
+template <bool BColMajor>
 __device__ __forceinline__ void block_gemm(float* C, int ldc, const float* A,
                                            int lda, const float* B, int ldb,
                                            int M, int N, int K,

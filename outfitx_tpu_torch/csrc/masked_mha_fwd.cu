@@ -6,52 +6,55 @@
 //   S[:, j] = -1e9 where key j is pad  a where-SET, never -inf, so a row whose
 //   S[i, j] = -1e9 where j > i         keys are all masked gets uniform
 //                                      weights (as in JAX), not NaN
-//   P = softmax(S) in float32 (subtract max, exp, divide)
+//   P = softmax(S) in float32 (subtract max, exp, divide), one pass
 //   P is rounded to the input dtype before P V (as _mha_kernel does)
 //   O = P V                            float32 accumulation, written in the
 //                                      input dtype
 // Inputs: q, k, v, out contiguous (B, H, L, Dh) of float or bfloat16;
-// pad (B, L) of bytes (torch.bool), nonzero = pad. Dh <= 128 and a multiple
-// of 8, so every (b, h) slab is a whole number of 16-byte vectors. L <= 64
-// takes the set-attention kernel below; 64 < L <= 256 (the frozen towers:
-// 196 patches, 77 causal text tokens) takes the query-tiled kernel at the end
-// of this file, which needs Dh a multiple of 16.
+// pad (B, L) of bytes (torch.bool), nonzero = pad. 1 <= L <= 256; Dh <= 128
+// and a multiple of 8 (16 above L = 64).
 //
-// What bounds it on an H100. The main serving path calls it at
-// (B, H, L, Dh) = (8, 16, 17, 96): 1.7 MB in and out, below a microsecond of
-// memory time, so the launch bounds it. At the throughput shape B = 4096 it
-// moves q, k, v and out in bf16, about 856 MB, which is about 0.26 ms at
-// 3.35 TB/s, against 4*B*H*L*L*Dh = 7.3 GFLOP, about 7 us of bf16
-// tensor-core time: memory-bound by a factor of about 35.
+// What bounds it on an H100: bytes. The function reads q, k, v and writes
+// out once: at the set transformer's throughput shape (4096, 16, 17, 96) in
+// bfloat16 that is 856 MB, 0.255 ms at 3.35 TB/s, against 7.3 GFLOP (7 us of
+// tensor-core time); at the SigLIP vision tower's (2048, 12, 196, 64) it is
+// 2.47 GB, 0.736 ms, against 242 GFLOP (0.24 ms).
 //
-// Design. One block of 128 threads per (b, h); blocks share nothing (the TPU
-// kernel's batch tile is a VMEM sizing choice with no counterpart here). The
-// block loads Q, K and V with 16-byte vector loads into shared memory as
-// float32 (the bf16 -> f32 widening is exact), keeps the whole L x L score
-// block in shared memory, and does the two small products with scalar FMAs
-// on the CUDA cores: Q and K rows are padded by one float so the score loop
-// reads no two rows from one bank, and P V reads V as float4. At L = 17 the
-// products are too small for a 64-row wgmma tile. The kernel reads each input
-// byte once and writes each output byte once, which is what the memory bound
-// asks for. Making it fast (several heads per block, mma.sync, fewer
-// shared-memory reads per FMA) is later work.
+// bfloat16 with Dh a multiple of 16 (every main path) works on tiles of 64
+// query rows of the flat (B H L, Dh) arrays, where each (b, h) slab is L
+// consecutive rows, so one 64-row TMA box (128-byte swizzle) covers several
+// slabs. P V is wgmma with V from shared memory, and the output leaves the
+// accumulator fragments as bfloat16 pairs. By length (ops/attention.py
+// tile_plan):
+//   L <= 32   masked_mha_fwd_packed_kernel: floor(64 / L) consecutive slabs
+//             in one tile (3 at L = 17: 51 of 64 rows, 21,846 blocks at
+//             B = 4096 instead of 65,536 of 17 rows). S only within each
+//             slab, summed in order over d on the CUDA cores, and each row's
+//             softmax by one warp, as the plain version's float32 product
+//             and warp softmax do them: P is bit-equal to its P (below, why
+//             that matters), and goes into a swizzled tile (0 off the row's
+//             slab) for wgmma_ss.
+//   L > 32    masked_mha_fwd_long_tile_kernel: one slab a tile, ceil(L / 64)
+//             query tiles against all L keys at once: S by wgmma_ss at N =
+//             64, 128 or 256 with K as the K-major B operand, the softmax on
+//             the accumulator fragments with two quad shuffles, one pass
+//             with no rescaling, so P rounds where _mha_kernel rounds it; P
+//             packed to bfloat16 is the register A operand of wgmma_rs. A
+//             block walks the query tiles of its (b, h) with K and V loaded
+//             once, and loads the next tile's Q while it finishes this one.
+//             Key rows past L belong to the next slab or are TMA's zeros:
+//             -inf, so P is exactly 0 there.
+// Rows past the tensor are TMA's zeros and never stored. Q and K columns
+// past Dh are TMA's zeros, so S takes all the columns of its boxes; P V
+// computes 64 or 128 columns and stores Dh.
 //
-// Tower lengths (64 < L <= 256). Q, K, V widened to float32 plus the L x L
-// scores pass the 227 KB a block can have (about 307 KB at L = 196, Dh = 64),
-// so the long kernel tiles the QUERIES, 32 rows at a time. All L keys and
-// all L values of a (b, h) lie in shared memory in the input dtype and the
-// (32, L) float32 scores beside them; one block of 256 threads walks the
-// query tiles of its (b, h), so K and V are read once. Where K and V do not
-// both fit (float32 at the largest L and Dh) a block takes one query tile
-// and loads the values into the keys' place. Every key of a row is present, so the softmax is
-// the same one-pass max / exp / sum as above and P is rounded to the input
-// dtype before P V: no online softmax, same arithmetic as the short kernel.
-// The two products go through bg::block_gemm (block_gemm.cuh): wmma on the
-// tensor cores for bfloat16, scalar FMAs for float32. At (2048, 12, 196, 64)
-// in bf16 the function moves 2.47 GB (0.74 ms at 3.35 TB/s) against
-// 242 GFLOP (0.24 ms): bound by bytes. Each input byte is read once and each
-// output byte written once; the row softmax and the products' shared-memory
-// traffic, not the bytes, take most of the kernel's time (later work).
+// float32 (the correctness route; no main path on the card runs it) and
+// bfloat16 at a Dh that is not a multiple of 16 keep the scalar designs:
+// L <= 64 one block of 128 threads per (b, h) with Q, K, V widened to
+// float32 in shared memory and both products as scalar FMAs; float32 above
+// L = 64 tiles the queries, 32 rows at a time, with every key and value of
+// the (b, h) in shared memory and the products as bg::block_gemm's scalar
+// FMAs (block_gemm.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +62,7 @@
 #include <stdint.h>
 
 #include "block_gemm.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -83,6 +87,13 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+
+// Same rounding as the reference: 1/sqrt(Dh) in double, then to float.
+inline float softmax_scale(int Dh) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
+}
+
+// ---- float32, or bfloat16 at Dh % 16 != 0; L <= 64 ------------------------
 
 // Widen one (L, Dh) slab of T into float shared memory, 16 bytes per load,
 // with a row stride of `stride` floats. A 16-byte chunk never crosses a row,
@@ -204,9 +215,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* pad, void* out, int B, int H, int L, int Dh,
-                   int causal, cudaStream_t stream) {
+cudaError_t launch_short(const void* q, const void* k, const void* v,
+                         const void* pad, void* out, int B, int H, int L,
+                         int Dh, int causal, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(L) * Dh +
                        2 * static_cast<size_t>(L) * (Dh + 1) +
                        static_cast<size_t>(L) * L) * sizeof(float);
@@ -216,16 +227,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  // Same rounding as the reference: 1/sqrt(Dh) in double, then to float.
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
   masked_mha_fwd_kernel<T><<<B * H, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
-      static_cast<T*>(out), H, L, Dh, scale, causal);
+      static_cast<T*>(out), H, L, Dh, softmax_scale(Dh), causal);
   return cudaGetLastError();
 }
 
-// ---- 64 < L <= 256: query-tiled --------------------------------------------
+// ---- float32, 64 < L <= 256: query-tiled ------------------------------------
 
 constexpr int kLongThreads = 256;
 constexpr int kQTile = 32;
@@ -233,32 +242,27 @@ constexpr int kQTile = 32;
 // The most dynamic shared memory a block can have on sm_90.
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// Shared-memory layout of the long kernel, used by the kernel and by the
-// launch: K (Lp, Dh + pad) of T; V the same, in a buffer of its own where
-// both fit (`resident`), else in K's place once the scores are formed; Q
-// (kQTile, Dh + pad) of T, later the float32 output tile in the same place;
-// scores (kQTile, Lp + pad) float32; P (kQTile, Lp + pad) of T, which for
-// float is the score buffer.
-template <typename T>
+// Shared-memory layout of the long float32 kernel, used by the kernel and by
+// the launch: K (Lp, Dh + pad); V the same, in a buffer of its own where both
+// fit (`resident`), else in K's place once the scores are formed; Q
+// (kQTile, Dh + pad), later the output tile in the same place; scores, then
+// P in place, (kQTile, Lp + pad).
 struct LongLayout {
   int lp, ldt, lds;
   bool resident;
-  size_t k, v, qo, s, p, total;
+  size_t k, v, qo, s, total;
   __host__ __device__ LongLayout(int L, int Dh) {
     lp = bg::round16(L);
     ldt = Dh + bg::kRowPad;
     lds = lp + bg::kRowPad;
-    const size_t slab = bg::align128(sizeof(T) * lp * ldt);
-    const size_t rest =
-        bg::align128(sizeof(float) * kQTile * ldt) +
-        bg::align128(sizeof(float) * kQTile * lds) +
-        (sizeof(T) == sizeof(float) ? 0 : bg::align128(sizeof(T) * kQTile * lds));
+    const size_t slab = bg::align128(sizeof(float) * lp * ldt);
+    const size_t rest = bg::align128(sizeof(float) * kQTile * ldt) +
+                        bg::align128(sizeof(float) * kQTile * lds);
     resident = 2 * slab + rest <= kMaxSmem;
     k = 0;
     v = resident ? slab : 0;
     qo = v + slab;
     s = qo + bg::align128(sizeof(float) * kQTile * ldt);
-    p = s + bg::align128(sizeof(float) * kQTile * lds);
     total = qo + rest;
   }
 };
@@ -266,23 +270,20 @@ struct LongLayout {
 // With K and V resident a block takes every query tile of its (b, h) in
 // turn and reads K and V once; otherwise a block takes one query tile and
 // loads K, then V in its place.
-template <typename T>
 __global__ void __launch_bounds__(kLongThreads)
-    masked_mha_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v,
+    masked_mha_fwd_long_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
                                const uint8_t* __restrict__ pad,
-                               T* __restrict__ out, int H, int L, int Dh,
+                               float* __restrict__ out, int H, int L, int Dh,
                                float scale, int causal) {
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const LongLayout<T> lay(L, Dh);
-  T* sk = reinterpret_cast<T*>(smem + lay.k);
-  T* sv = reinterpret_cast<T*>(smem + lay.v);
-  T* sq = reinterpret_cast<T*>(smem + lay.qo);
-  float* so = reinterpret_cast<float*>(smem + lay.qo);
+  const LongLayout lay(L, Dh);
+  float* sk = reinterpret_cast<float*>(smem + lay.k);
+  float* sv = reinterpret_cast<float*>(smem + lay.v);
+  float* sqo = reinterpret_cast<float*>(smem + lay.qo);
   float* ss = reinterpret_cast<float*>(smem + lay.s);
-  T* sp = sizeof(T) == sizeof(float) ? reinterpret_cast<T*>(smem + lay.s)
-                                     : reinterpret_cast<T*>(smem + lay.p);
 
   const int q_tiles = (L + kQTile - 1) / kQTile;
   const int bh = lay.resident ? blockIdx.x : blockIdx.x / q_tiles;
@@ -300,77 +301,571 @@ __global__ void __launch_bounds__(kLongThreads)
   for (int tile = first; tile < last; ++tile) {
     const int q0 = tile * kQTile;
     const int nq = min(kQTile, L - q0);
-    bg::load_tile(sq, lay.ldt, q + base + static_cast<size_t>(q0) * Dh, Dh, nq,
+    bg::load_tile(sqo, lay.ldt, q + base + static_cast<size_t>(q0) * Dh, Dh, nq,
                   kQTile, Dh);
     if (!lay.resident) bg::load_tile(sk, lay.ldt, k + base, Dh, L, lay.lp, Dh);
     __syncthreads();
     // S = Q K^T: K is stored (L, Dh), the product's B read column-major.
-    bg::block_gemm<true, 2>(ss, lay.lds, sq, lay.ldt, sk, lay.ldt, kQTile,
-                            lay.lp, Dh, false);
+    bg::block_gemm<true>(ss, lay.lds, sqo, lay.ldt, sk, lay.ldt, kQTile,
+                         lay.lp, Dh, false);
     __syncthreads();
     // Not resident: the keys are done with, the values take their place.
     if (!lay.resident) bg::load_tile(sv, lay.ldt, v + base, Dh, L, lay.lp, Dh);
     for (int i = warp; i < kQTile; i += kLongThreads / 32) {
       if (i < nq)
-        bg::softmax_row<T>(ss + i * lay.lds, sp + i * lay.lds, prow, L, lay.lp,
-                           q0 + i, scale, causal);
+        bg::softmax_row<float>(ss + i * lay.lds, ss + i * lay.lds, prow, L,
+                               lay.lp, q0 + i, scale, causal);
       else
-        bg::zero_row<T>(sp + i * lay.lds, lay.lp);
+        bg::zero_row<float>(ss + i * lay.lds, lay.lp);
     }
     __syncthreads();
     // O = P V into the place Q had.
-    bg::block_gemm<false, 1>(so, lay.ldt, sp, lay.lds, sv, lay.ldt, kQTile, Dh,
-                             lay.lp, false);
+    bg::block_gemm<false>(sqo, lay.ldt, ss, lay.lds, sv, lay.ldt, kQTile, Dh,
+                          lay.lp, false);
     __syncthreads();
     for (int e = threadIdx.x; e < nq * Dh; e += kLongThreads) {
       const int i = e / Dh;
       const int d = e - i * Dh;
-      out[base + static_cast<size_t>(q0 + i) * Dh + d] =
-          bg::from_f32<T>(so[i * lay.ldt + d]);
+      out[base + static_cast<size_t>(q0 + i) * Dh + d] = sqo[i * lay.ldt + d];
     }
     // The next tile's Q goes where this tile's output lies.
     __syncthreads();
   }
 }
 
-template <typename T>
-cudaError_t launch_long(const void* q, const void* k, const void* v,
-                        const void* pad, void* out, int B, int H, int L,
-                        int Dh, int causal, cudaStream_t stream) {
-  const LongLayout<T> lay(L, Dh);
+cudaError_t launch_long_f32(const void* q, const void* k, const void* v,
+                            const void* pad, void* out, int B, int H, int L,
+                            int Dh, int causal, cudaStream_t stream) {
+  const LongLayout lay(L, Dh);
   const cudaError_t err = cudaFuncSetAttribute(
-      masked_mha_fwd_long_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      masked_mha_fwd_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(lay.total));
   if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
   const int q_tiles = (L + kQTile - 1) / kQTile;
   const int blocks = B * H * (lay.resident ? 1 : q_tiles);
-  masked_mha_fwd_long_kernel<T><<<blocks, kLongThreads, lay.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
-      static_cast<T*>(out), H, L, Dh, scale, causal);
+  masked_mha_fwd_long_kernel<<<blocks, kLongThreads, lay.total, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(pad),
+      static_cast<float*>(out), H, L, Dh, softmax_scale(Dh), causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* pad, void* out, int B, int H, int L, int Dh,
-                     int causal, cudaStream_t stream) {
-  if (L <= 64) return launch<T>(q, k, v, pad, out, B, H, L, Dh, causal, stream);
-  if (L > 256 || Dh % 16) return cudaErrorInvalidValue;
-  return launch_long<T>(q, k, v, pad, out, B, H, L, Dh, causal, stream);
+// ---- bfloat16, Dh a multiple of 16 -------------------------------------------
+
+constexpr int kTile = 64;  // query rows of a tile: wgmma's M
+
+// Byte offset of element (r, c) of a (64, 64) bfloat16 tile in the 128-byte
+// swizzle that TMA writes and the wgmma descriptors name: row r at r * 128,
+// its 16-byte chunks permuted by r % 8.
+__device__ __forceinline__ int swizzled(int r, int c) {
+  const int byte = 2 * c;
+  return r * 128 + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+}
+
+// ---- L <= 32: slabs packed into a tile ---------------------------------------
+//
+// A block takes `slabs` (>= 2) consecutive (b, h) slabs, slabs * L <= 64
+// rows of the flat arrays, with Q, K and V by TMA. The scores and the
+// softmax repeat the plain version's float32 arithmetic step for step, so P
+// rounds to the same bfloat16 values where its float32 product sums in
+// order (as cuBLAS does at the set transformer's shapes): S is summed over d
+// in order on the CUDA cores (bfloat16 products are exact in float32), only
+// within each slab (slabs * L * L dots, not 64 x 64), and each row's softmax
+// as one warp's, key j in lane j, max and sum by the same butterfly. A wgmma
+// sum in another order moves S by an ulp, and where a causal row has few
+// keys, P near 1 then flips a bfloat16 ulp, which shows as 2^-6 in the
+// output. A thread scores a unit of one key against four query rows (four
+// running sums, the bfloat16 operands widened in registers); the scores wait
+// in shared memory in Q's and K's place for the row softmax, a thread a row.
+// P (bfloat16)
+// goes into a swizzled (64, 64) tile, keys of another slab and rows past the
+// tile left 0, and O = P V is one wgmma_ss per k16 step.
+constexpr int kPackedL = 32;  // the longest slab packed: two to a tile
+
+// Index of score (r, j) in the (64, 64) float32 score block: the 4-float
+// groups of row r permuted by r % 8, so that 8 threads reading 8 rows'
+// same group hit 8 bank groups.
+__device__ __forceinline__ int score_at(int r, int j) {
+  return r * kTile + (j ^ ((r & 7) << 2));
+}
+constexpr int kUnitRows = 4;
+constexpr int kMaxUnits = 4;  // units a thread: at most 64 * 8 / 128 (L = 32)
+
+template <int NB>
+struct PackedLayout {
+  // Q, K, V: NB boxes of (64 rows, 64 columns) each, Q and K adjacent; once
+  // they are read, the float32 (64, 64) scores take their first 16 KB and
+  // the P tile the next 8 KB where there are (NB = 2), else its own place.
+  static constexpr int kBox = NB * hg::kBoxBytes;
+  static constexpr int kScores = 4 * kTile * kTile;
+  static constexpr int kQ = 0, kK = kBox, kV = 2 * kBox;
+  static constexpr int kP = 2 * kBox >= kScores + hg::kBoxBytes ? kScores : 3 * kBox;
+  static constexpr int kEnd = kP == kScores ? 3 * kBox : 3 * kBox + hg::kBoxBytes;
+  static constexpr int kBytes = kEnd + 8 + 1024;
+  static_assert(2 * kBox >= kScores, "the scores fit Q and K");
+};
+
+// Eight bfloat16 of 16-byte chunk `chunk` (8 columns) of row r of a tile of
+// NB swizzled (64, 64) boxes, as float32.
+__device__ __forceinline__ void chunk_f32(const uint8_t* tile, int r, int chunk,
+                                          float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(
+      tile + (chunk >> 3) * hg::kBoxBytes + r * 128 + (((chunk & 7) ^ (r & 7)) << 4));
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    f[2 * t] = __uint_as_float(w[t] << 16);
+    f[2 * t + 1] = __uint_as_float(w[t] & 0xFFFF0000u);
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(128)
+    masked_mha_fwd_packed_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const uint8_t* __restrict__ pad,
+                                 __nv_bfloat16* __restrict__ out, int BH,
+                                 int H, int L, int Dh, int slabs, float scale,
+                                 int causal) {
+  using Lay = PackedLayout<NB>;
+  constexpr int NPV = NB == 1 ? 64 : 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint8_t* sq = smem + Lay::kQ;
+  const uint8_t* sk = smem + Lay::kK;
+  uint8_t* sv = smem + Lay::kV;
+  uint8_t* sp = smem + Lay::kP;
+  float* ss = reinterpret_cast<float*>(smem + Lay::kQ);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lay::kEnd);
+
+  const int slab0 = blockIdx.x * slabs;
+  const int live = min(slabs, BH - slab0);  // the tile's slabs
+  const int rows = live * L;
+  const int row0 = slab0 * L;
+  if (threadIdx.x == 0) {
+    hg::mbar_init(bar, 1);
+    hg::mbar_init_fence();
+    hg::mbar_expect_tx(bar, 3 * Lay::kBox);
+    const CUtensorMap* maps[3] = {&map_q, &map_k, &map_v};
+    for (int i = 0; i < 3; ++i)
+      for (int cb = 0; cb < NB; ++cb)
+        hg::tma_load(smem + i * Lay::kBox + cb * hg::kBoxBytes, maps[i],
+                     64 * cb, row0, bar);
+  }
+  __syncthreads();
+  hg::mbar_wait(bar, 0);
+
+  // Scores of each (row i, key j) of a slab, with the key mask and the
+  // causal mask set, not added. Unit u is key j = u % L against rows
+  // 4 g .. 4 g + 3 of slab sl, (sl, g) = divmod(u / L, ng): neighbouring
+  // threads read neighbouring key rows and the same query rows.
+  const int ng = (L + kUnitRows - 1) / kUnitRows;
+  const int n_units = live * L * ng;
+  float sreg[kMaxUnits][kUnitRows];
+#pragma unroll
+  for (int t = 0; t < kMaxUnits; ++t) {
+    const int u = threadIdx.x + 128 * t;
+    if (u < n_units) {
+      const int j = u % L;
+      const int sl = u / L / ng;
+      const int i0 = (u / L - sl * ng) * kUnitRows;
+      const int kr = sl * L + j;
+      int qr[kUnitRows];
+#pragma unroll
+      for (int m = 0; m < kUnitRows; ++m) qr[m] = sl * L + min(i0 + m, L - 1);
+      float acc[kUnitRows] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < Dh / 8; ++c) {
+        float y[8];
+        chunk_f32(sk, kr, c, y);
+#pragma unroll
+        for (int m = 0; m < kUnitRows; ++m) {
+          float x[8];
+          chunk_f32(sq, qr[m], c, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[m] = fmaf(x[e], y[e], acc[m]);
+        }
+      }
+      const bool padded = pad[static_cast<size_t>((slab0 + sl) / H) * L + j];
+#pragma unroll
+      for (int m = 0; m < kUnitRows; ++m) {
+        float v = acc[m] * scale;
+        if (padded) v = kNeg;
+        if (causal && j > i0 + m) v = kNeg;
+        sreg[t][m] = v;
+      }
+    }
+  }
+  __syncthreads();  // Q and K are read: the scores and P take their place
+  for (int c = threadIdx.x; c < hg::kBoxBytes / 16; c += 128)
+    reinterpret_cast<uint4*>(sp)[c] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int t = 0; t < kMaxUnits; ++t) {
+    const int u = threadIdx.x + 128 * t;
+    if (u < n_units) {
+      const int j = u % L;
+      const int sl = u / L / ng;
+      const int i0 = (u / L - sl * ng) * kUnitRows;
+#pragma unroll
+      for (int m = 0; m < kUnitRows; ++m)
+        if (i0 + m < L) ss[score_at(sl * L + i0 + m, j)] = sreg[t][m];
+    }
+  }
+  __syncthreads();
+
+  // Row softmax, a thread a row: max, exp and divide in float32 as the
+  // plain version's warp softmax does them, and the sum over the same tree:
+  // its butterfly over 32 lanes, key j in lane j (zeros past L, which leave
+  // every partial sum unchanged), adds slot j + o into slot j for o = 16, 8,
+  // 4, 2, 1. P rounded to bfloat16 into the row's slab columns of the P tile.
+  for (int r = threadIdx.x; r < rows; r += 128) {
+    const float4* row = reinterpret_cast<const float4*>(ss + r * kTile);
+    float e[32];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 v = row[c ^ (r & 7)];
+      e[4 * c] = v.x, e[4 * c + 1] = v.y, e[4 * c + 2] = v.z, e[4 * c + 3] = v.w;
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) m = j < L ? fmaxf(m, e[j]) : m;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) e[j] = j < L ? expf(e[j] - m) : 0.f;
+    float t[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) t[j] = e[j] + e[j + 16];
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < o; ++j) t[j] = t[j] + t[j + o];
+    const int lo = r / L * L;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (j < L)
+        *reinterpret_cast<__nv_bfloat16*>(sp + swizzled(r, lo + j)) =
+            __float2bfloat16_rn(e[j] / t[0]);
+  }
+  hg::fence_async_smem();  // P, written by the threads, is read by wgmma
+  __syncthreads();
+
+  float o[NPV / 2];
+  hg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hg::wgmma_ss<NPV, 1>(o, hg::desc_kmajor(sp + 32 * kk),
+                         hg::desc_nmajor(sv + 2048 * kk), kk != 0);
+  hg::wgmma_commit();
+  hg::wgmma_wait<0>();
+  hg::fence_regs<NPV / 2>(o);
+
+  const int lane = threadIdx.x % 32;
+  const int rq = (threadIdx.x / 32) * 16 + lane / 4;  // and rq + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rq + 8 * h;
+    if (r >= rows) continue;
+    __nv_bfloat16* dst = out + static_cast<size_t>(row0 + r) * Dh;
+#pragma unroll
+    for (int g = 0; g < NPV / 8; ++g) {
+      const int col = g * 8 + (lane % 4) * 2;
+      if (col < Dh)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(o[4 * g + 2 * h], o[4 * g + 2 * h + 1]);
+    }
+  }
+}
+
+// ---- L > 32: query tiles against all keys ------------------------------------
+//
+// One slab a tile from L = 33 on (score width 64 up to L = 64, then 128 and
+// 256). A block takes one (b, h) slab and walks all its query tiles with K
+// and V loaded once (faster than a block a tile with K and V re-read through
+// L2); the next tile's Q loads while this one finishes. Shared memory: Q, NB boxes of (64 rows, 64 columns); K,
+// NB column boxes of NK rows each (K-major B operand of S, N = NK); V, NK /
+// 64 chunks of NB boxes of (64 rows, 64 columns) (N-major B operand of P V,
+// the column boxes kBoxBytes apart); three mbarriers: Q, K, V; the key
+// table, a byte a key: 0 kept, 1 pad, 2 past L.
+template <int NB, int NK>
+struct LongTileLayout {
+  static constexpr int kQ = NB * hg::kBoxBytes;
+  static constexpr int kKV = NB * NK * 128;
+  static constexpr int kBytes = kQ + 2 * kKV + 3 * 8 + NK + 1024;
+};
+
+// e^x for x <= 0 (or -inf) by the SFU's 2^x, within a few float32 ulps of
+// expf; with P = e * (1 / sum) (not a division), P's bfloat16 rounding may
+// differ from the plain version's by an ulp where P lies on a rounding
+// edge. Over L > 64 keys P is small, and the card's check holds.
+__device__ __forceinline__ float exp_neg(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// One warpgroup. A thread holds, of each accumulator tile, rows rq and
+// rq + 8 and in every 8-column group g the columns 8 g + 2 (lane % 4) + {0,
+// 1}: element i is column (i / 4) * 8 + 2 (lane % 4) + i % 2 of row rq +
+// 8 ((i % 4) / 2). A row's other columns lie in the 3 other threads of its
+// quad, so the max and the sum take two shuffles each.
+template <int NB, int NK>
+__global__ void __launch_bounds__(128)
+    masked_mha_fwd_long_tile_kernel(const __grid_constant__ CUtensorMap map_q,
+                                    const __grid_constant__ CUtensorMap map_k,
+                                    const __grid_constant__ CUtensorMap map_v,
+                                    const uint8_t* __restrict__ pad,
+                                    __nv_bfloat16* __restrict__ out, int H,
+                                    int L, int Dh, float scale, int causal) {
+  using W = LongTileLayout<NB, NK>;
+  constexpr int NPV = NB == 1 ? 64 : 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = smem;
+  uint8_t* sk = sq + W::kQ;
+  uint8_t* sv = sk + W::kKV;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + W::kKV);
+  uint8_t* keys = reinterpret_cast<uint8_t*>(bar + 3);
+
+  const int q_tiles = (L + kTile - 1) / kTile;
+  const int bh = blockIdx.x;
+  const int row0 = bh * L;
+  const uint8_t* prow = pad + static_cast<size_t>(bh / H) * L;
+  for (int c = threadIdx.x; c < NK; c += 128)
+    keys[c] = c < L ? (prow[c] != 0) : 2;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) hg::mbar_init(&bar[i], 1);
+    hg::mbar_init_fence();
+    hg::mbar_expect_tx(&bar[0], W::kQ);
+    for (int cb = 0; cb < NB; ++cb)
+      hg::tma_load(sq + cb * hg::kBoxBytes, &map_q, 64 * cb, row0, &bar[0]);
+    hg::mbar_expect_tx(&bar[1], W::kKV);
+    for (int cb = 0; cb < NB; ++cb)
+      for (int c = 0; c < NK / 64; ++c)
+        hg::tma_load(sk + cb * NK * 128 + c * hg::kBoxBytes, &map_k, 64 * cb,
+                     row0 + 64 * c, &bar[1]);
+    hg::mbar_expect_tx(&bar[2], W::kKV);
+    for (int c = 0; c < NK / 64; ++c)
+      for (int cb = 0; cb < NB; ++cb)
+        hg::tma_load(sv + (c * NB + cb) * hg::kBoxBytes, &map_v, 64 * cb,
+                     row0 + 64 * c, &bar[2]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int rq = (threadIdx.x / 32) * 16 + lane / 4;  // and rq + 8
+  for (int tile = 0; tile < q_tiles; ++tile) {
+    hg::mbar_wait(&bar[0], tile & 1);
+    hg::mbar_wait(&bar[1], 0);
+    float s[NK / 2];
+    hg::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * NB; ++ks)
+      hg::wgmma_ss<NK, 0>(
+          s, hg::desc_kmajor(sq + (ks / 4) * hg::kBoxBytes + (ks % 4) * 32),
+          hg::desc_kmajor(sk + (ks / 4) * NK * 128 + (ks % 4) * 32), ks != 0);
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_regs<NK / 2>(s);
+    if (tile + 1 < q_tiles) {
+      // Q is read: the next tile's queries load while this one finishes.
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        hg::mbar_expect_tx(&bar[0], W::kQ);
+        for (int cb = 0; cb < NB; ++cb)
+          hg::tma_load(sq + cb * hg::kBoxBytes, &map_q, 64 * cb,
+                       row0 + kTile * (tile + 1), &bar[0]);
+      }
+    }
+
+    // Scale, then where-set the pad and causal keys to -1e9; keys past L
+    // (the next slab's rows, or TMA's zeros) are -inf, so P is exactly 0
+    // there.
+    const int i0 = tile * kTile + rq;  // the query positions i0 and i0 + 8
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int g = 0; g < NK / 8; ++g) {
+      const uint16_t pair =
+          *reinterpret_cast<const uint16_t*>(keys + 8 * g + (lane % 4) * 2);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * g + (lane % 4) * 2 + e;
+        const int key = (pair >> (8 * e)) & 0xFF;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * g + 2 * h + e;
+          float v = -INFINITY;
+          if (key < 2) {
+            v = key ? kNeg : s[i] * scale;
+            if (causal && c > i0 + 8 * h) v = kNeg;
+          }
+          s[i] = v;
+          mx[h] = fmaxf(mx[h], v);
+        }
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) {
+      const int h = (i % 4) / 2;
+      s[i] = exp_neg(s[i] - mx[h]);
+      sum[h] += s[i];
+    }
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      inv[h] = 1.f / sum[h];  // at least 1: the row's max contributes e^0
+    }
+    // P rounded to bfloat16, packed as the A fragments of k16 steps.
+    uint32_t pa[NK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        const int h = q % 2;
+        pa[kk][q] = hg::pack_bf16(s[i] * inv[h], s[i + 1] * inv[h]);
+      }
+
+    hg::mbar_wait(&bar[2], 0);
+    float o[NPV / 2];
+    hg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+      hg::wgmma_rs<NPV, 1>(
+          o, pa[kk],
+          hg::desc_nmajor(sv + (kk / 4) * NB * hg::kBoxBytes + (kk % 4) * 2048),
+          kk != 0);
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_regs<NPV / 2>(o);
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + 8 * h;
+      if (i >= L) continue;
+      __nv_bfloat16* dst = out + static_cast<size_t>(row0 + i) * Dh;
+#pragma unroll
+      for (int g = 0; g < NPV / 8; ++g) {
+        const int col = g * 8 + (lane % 4) * 2;
+        if (col < Dh)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(o[4 * g + 2 * h], o[4 * g + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int NB>
+cudaError_t launch_packed(const CUtensorMap* maps, const void* pad, void* out,
+                          int BH, int H, int L, int Dh, int slabs, int causal,
+                          cudaStream_t stream) {
+  const int smem = PackedLayout<NB>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      masked_mha_fwd_packed_kernel<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  masked_mha_fwd_packed_kernel<NB><<<(BH + slabs - 1) / slabs, 128, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(pad),
+      static_cast<__nv_bfloat16*>(out), BH, H, L, Dh, slabs, softmax_scale(Dh),
+      causal);
+  return cudaGetLastError();
+}
+
+template <int NB, int NK>
+cudaError_t launch_long_tile(const CUtensorMap* maps, const void* pad,
+                             void* out, int BH, int H, int L, int Dh,
+                             int causal, cudaStream_t stream) {
+  const int smem = LongTileLayout<NB, NK>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      masked_mha_fwd_long_tile_kernel<NB, NK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  masked_mha_fwd_long_tile_kernel<NB, NK><<<BH, 128, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(pad),
+      static_cast<__nv_bfloat16*>(out), H, L, Dh, softmax_scale(Dh), causal);
+  return cudaGetLastError();
+}
+
+// The tile plan (ops/attention.py tile_plan): keys = the score block's
+// width, 64 (L <= 32: `slabs` slabs a tile; L <= 64: one), 128 or 256 (one
+// slab, its query tiles in turn).
+cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
+                           const void* pad, void* out, int B, int H, int L,
+                           int Dh, int causal, int slabs, int keys,
+                           cudaStream_t stream) {
+  const int want_keys = L <= kTile ? kTile : L <= 128 ? 128 : 256;
+  const bool packed = L <= kPackedL;
+  const bool plan_ok = keys == want_keys &&
+                       (packed ? slabs >= 2 && slabs * L <= kTile : slabs == 1);
+  if (Dh % 16 || Dh > 128 || !plan_ok) return cudaErrorInvalidValue;
+  const int BH = B * H;
+  const uint64_t rows = static_cast<uint64_t>(BH) * L;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (!hg::tensor_map(&maps[i], src[i], rows, Dh, Dh, 64))
+      return cudaErrorInvalidValue;
+  const bool wide = Dh > 64;
+  if (packed)
+    return wide ? launch_packed<2>(maps, pad, out, BH, H, L, Dh, slabs, causal, stream)
+                : launch_packed<1>(maps, pad, out, BH, H, L, Dh, slabs, causal, stream);
+  if (keys == 64)
+    return wide ? launch_long_tile<2, 64>(maps, pad, out, BH, H, L, Dh, causal, stream)
+                : launch_long_tile<1, 64>(maps, pad, out, BH, H, L, Dh, causal, stream);
+  if (keys == 128)
+    return wide ? launch_long_tile<2, 128>(maps, pad, out, BH, H, L, Dh, causal, stream)
+                : launch_long_tile<1, 128>(maps, pad, out, BH, H, L, Dh, causal, stream);
+  return wide ? launch_long_tile<2, 256>(maps, pad, out, BH, H, L, Dh, causal, stream)
+              : launch_long_tile<1, 256>(maps, pad, out, BH, H, L, Dh, causal, stream);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 = success).
+// Dynamic shared memory of the bfloat16 tile kernels at head width dh and
+// score width keys (32: the packed kernel), for build reports (0 for a plan
+// they do not take).
+extern "C" int masked_mha_fwd_smem_bytes(int dh, int keys) {
+  if (dh < 16 || dh > 128 || dh % 16) return 0;
+  const bool wide = dh > 64;
+  switch (keys) {
+    case 32: return wide ? PackedLayout<2>::kBytes : PackedLayout<1>::kBytes;
+    case 64: return wide ? LongTileLayout<2, 64>::kBytes : LongTileLayout<1, 64>::kBytes;
+    case 128: return wide ? LongTileLayout<2, 128>::kBytes : LongTileLayout<1, 128>::kBytes;
+    case 256: return wide ? LongTileLayout<2, 256>::kBytes : LongTileLayout<1, 256>::kBytes;
+    default: return 0;
+  }
+}
+
+// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. keys > 0
+// takes the bfloat16 tile kernels with the tile plan (slabs, keys); keys = 0
+// the scalar kernels. Returns the cudaError_t of the launch (0 = success).
 extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                               const void* pad, void* out, int B, int H, int L,
-                              int Dh, int causal, int dtype, void* stream) {
+                              int Dh, int causal, int dtype, int slabs,
+                              int keys, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, pad, out, B, H, L, Dh, causal, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
+  if (B < 1 || H < 1 || L < 1 || L > 256 || Dh < 8 || Dh > 128 || Dh % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (keys > 0) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(dispatch_tiles(q, k, v, pad, out, B, H, L, Dh,
+                                           causal, slabs, keys, s));
+  }
+  if (dtype == 0) {
+    if (L <= 64)
+      return launch_short<float>(q, k, v, pad, out, B, H, L, Dh, causal, s);
+    if (Dh % 16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_long_f32(q, k, v, pad, out, B, H, L, Dh, causal, s);
+  }
+  if (dtype == 1 && L <= 64)
+    return launch_short<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

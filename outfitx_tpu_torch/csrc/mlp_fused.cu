@@ -137,14 +137,14 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c0 = 0; c0 < d_mlp; c0 += kChunk) {
     const int cw = min(kChunk, d_mlp - c0);
-    bg::block_gemm<false, 2>(smid, lay.ldm, sx, lay.ldx, w1 + c0, d_mlp,
-                             kRows, cw, d, false);
+    bg::block_gemm<false>(smid, lay.ldm, sx, lay.ldx, w1 + c0, d_mlp,
+                          kRows, cw, d, false);
     __syncthreads();
     activate_chunk(smid, lay.ldm, b1 + c0, cw, act);
     __syncthreads();
-    bg::block_gemm<false, 2>(sacc, lay.ldx, smid, lay.ldm,
-                             w2 + static_cast<size_t>(c0) * d, d, kRows, d, cw,
-                             c0 > 0);
+    bg::block_gemm<false>(sacc, lay.ldx, smid, lay.ldm,
+                          w2 + static_cast<size_t>(c0) * d, d, kRows, d, cw,
+                          c0 > 0);
     __syncthreads();
   }
   store_rows(sacc, lay.ldx, b2, out + static_cast<size_t>(row0) * d, n_rows, d);

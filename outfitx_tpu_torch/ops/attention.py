@@ -2,9 +2,8 @@
 
 Inputs are (B, H, L, Dh) with a (B, L) bool key-padding mask (True = pad).
 Outfits are at most 16 items + 1 prefix token, so the set transformer's
-attention runs over tiny sequences: the whole (L, L) score block fits on
-chip. The frozen towers call the forward at 50, 77 (causal) and 196 tokens:
-above 64 the forward kernel tiles the queries (up to 256 tokens). The towers
+attention runs over tiny sequences; the frozen towers call the forward at
+50, 77 (causal) and 196 tokens. The forward takes L up to 256; the towers
 take no gradient, so the backward kernel keeps L <= 64.
 
 ``masked_mha`` is differentiable through ``MaskedMHA``, a
@@ -16,11 +15,22 @@ on where the tensors lie. A CUDA tensor goes to the hand-written kernels
 raises; a CPU tensor goes to ``mha_reference`` and ``mha_bwd_reference``,
 the plain PyTorch versions of the same functions, which are also what the
 kernels are held against on the card.
+
+The bfloat16 forward at Dh a multiple of 16 works on tiles of 64 query rows
+of the flat (B H L, Dh) arrays, where each (b, h) slab is L consecutive
+rows. ``tile_plan`` says how a call is cut into tiles, and the C entry takes
+its plan: up to L = 32 (the set transformer), ``64 // L`` slabs packed into
+one tile, each row seeing only its own slab's keys, with P bit-equal to the
+plain version's; above, one slab's query tiles against all of its keys at
+once, on the tensor cores. float32 (the correctness route) and bfloat16 at
+other Dh run the scalar kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -31,9 +41,44 @@ _NEG = -1e9
 _FWD = "masked_mha_fwd"
 _BWD = "masked_mha_bwd"
 _DTYPE_CODES = _launch.DTYPE_CODES
-MAX_L = 256  # forward; above SHORT_L the query-tiled kernel
-SHORT_L = 64  # the one-block-per-(b, h) kernels: forward below, backward always
+MAX_L = 256  # forward
+SHORT_L = 64  # backward; above it the forward wants Dh a multiple of 16
 MAX_DH = 128
+TILE_ROWS = 64  # query rows of a tile (wgmma's M)
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the forward kernel cuts a call of length L into tiles.
+
+    keys: width of a tile's score block, 64, 128 or 256 (the tile
+        kernels); 0 for the scalar kernels, which need no plan.
+    slabs: (b, h) slabs in one 64-row tile, ``64 // L``: two or more (L <=
+        32) take the packed kernel, one the query-tile kernel.
+    q_tiles: 64-row query tiles of one slab (1 up to L = 64), which one
+        block takes in turn, loading K and V once.
+    """
+
+    keys: int
+    slabs: int
+    q_tiles: int
+
+    def blocks(self, bh: int) -> int:
+        """Blocks the tile kernels launch for B * H = bh slabs."""
+        return -(-bh // self.slabs)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(l: int, dh: int, dtype: torch.dtype) -> TilePlan:
+    """The forward kernel's tile plan for length l, head width dh and dtype.
+    The tile kernels take bfloat16 at dh a multiple of 16."""
+    if dtype != torch.bfloat16 or dh % 16:
+        return TilePlan(keys=0, slabs=0, q_tiles=0)
+    if l <= TILE_ROWS:
+        return TilePlan(keys=TILE_ROWS, slabs=TILE_ROWS // l, q_tiles=1)
+    return TilePlan(keys=128 if l <= 128 else 256, slabs=1, q_tiles=-(-l // TILE_ROWS))
 
 
 def _probs(q, k, pad_mask, causal: bool):
@@ -118,22 +163,16 @@ def _check(q, k, v, pad_mask, g=None):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _bind(name: str, n_ptrs: int):
-    return _launch.bind(
-        name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
-
-
 def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
     _check(q, k, v, pad_mask)
-    fn = _bind(_FWD, 5)
+    fn = _launch.bind(_FWD, _FWD_ARGTYPES)
     b, h, l, dh = q.shape
+    plan = tile_plan(l, dh, q.dtype)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
         out.data_ptr(), b, h, l, dh, int(causal), _DTYPE_CODES[q.dtype],
-        stream,
+        plan.slabs, plan.keys, _launch.current_stream(q.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"{_FWD} launch failed: cudaError {err}")
@@ -143,14 +182,14 @@ def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
 
 def _masked_mha_bwd_cuda(q, k, v, pad_mask, g, causal: bool):
     _check(q, k, v, pad_mask, g)
-    fn = _bind(_BWD, 8)
+    fn = _launch.bind(_BWD, _BWD_ARGTYPES)
     b, h, l, dh = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         pad_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, l, dh, int(causal), _DTYPE_CODES[q.dtype], stream,
+        b, h, l, dh, int(causal), _DTYPE_CODES[q.dtype],
+        _launch.current_stream(q.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"{_BWD} launch failed: cudaError {err}")

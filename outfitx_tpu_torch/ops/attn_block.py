@@ -26,6 +26,10 @@ from outfitx_tpu_torch.ops import _launch
 
 _NEG = -1e9
 _NAME = "attn_block"
+_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
 MAX_L = 64
 MAX_D = 1536
 MAX_DH = 128
@@ -93,11 +97,7 @@ def _attn_block_cuda(y, wqkv, bqkv, wo, pad_mask, n_heads, scale, causal):
         raise ValueError(f"pad_mask must be bool (B, L) = {(b, l)}")
     if pad_mask.device != y.device or not pad_mask.is_contiguous():
         raise ValueError("pad_mask must be contiguous on the same device as y")
-    fn = _launch.bind(
-        _NAME,
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    )
+    fn = _launch.bind(_NAME, _ARGTYPES)
     out = torch.empty((b, l, d), dtype=torch.float32, device=y.device)
     # The bfloat16 kernel's phases hand over through these: q|k|v of every
     # head (biased, rounded), and ctx (every head's P v, rounded). The
@@ -105,7 +105,7 @@ def _attn_block_cuda(y, wqkv, bqkv, wo, pad_mask, n_heads, scale, causal):
     bf16 = y.dtype == torch.bfloat16
     qkv = torch.empty((b * l, 3 * d), dtype=y.dtype, device=y.device) if bf16 else None
     ctx = torch.empty_like(y) if bf16 else None
-    stream = torch.cuda.current_stream(y.device).cuda_stream
+    stream = _launch.current_stream(y.get_device())
     err = fn(
         y.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
         pad_mask.data_ptr(), None if qkv is None else qkv.data_ptr(),

@@ -24,6 +24,7 @@ from outfitx_tpu_torch.ops import _launch
 from outfitx_tpu_torch.ops.activations import TOWER_ACTIVATIONS
 
 _NAME = "mlp_fused"
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ACT_CODES = {"quick_gelu": 0, "gelu_tanh": 1, "gelu": 2}
 MAX_D = 768
 MID_SCRATCH_BYTES = 512 << 20
@@ -83,14 +84,12 @@ def _mlp_fused_cuda(x, w1, b1, w2, b2, act: str):
     if x2.shape[0] < 1:
         raise ValueError("mlp_fused kernel takes at least one row")
     _launch.check_operands(_NAME, x2, x=x2, w1=w1, b1=b1, w2=w2, b2=b2)
-    fn = _launch.bind(
-        _NAME, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
+    fn = _launch.bind(_NAME, _ARGTYPES)
     rows = x2.shape[0]
     out = torch.empty_like(x2)
     n_mid = mid_rows(rows, d_mlp) if dt == torch.bfloat16 else 0
     mid = torch.empty((n_mid, d_mlp), dtype=dt, device=x.device) if n_mid else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _launch.current_stream(x.get_device())
     err = fn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), None if mid is None else mid.data_ptr(),

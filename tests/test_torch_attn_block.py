@@ -185,9 +185,7 @@ def test_wrapper_hands_bfloat16_its_scratch(monkeypatch, dtype):
     monkeypatch.setattr(ab, "_wants_kernel", lambda t: True)
     monkeypatch.setattr(ab._launch, "bind", bind)
     monkeypatch.setattr(ab.torch, "empty", empty)
-    monkeypatch.setattr(
-        torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})
-    )
+    monkeypatch.setattr(ab._launch, "current_stream", lambda index: 0)
     y, wqkv, bqkv, wo, pad = _torch(_inputs(5, 9, 128), dtype)
     before = attn_block.launches
     out = attn_block(y, wqkv, bqkv, wo, pad, 2)

@@ -212,3 +212,110 @@ def test_prepare_flattens_casts_and_makes_contiguous():
     assert tuple(x2.shape) == (15, 32) and x2.is_contiguous()
     assert w2.dtype == b2.dtype == torch.float32
     assert torch.equal(x2.reshape(5, 3, 32), xt.to(torch.bfloat16))
+
+
+# ---- the launch path ---------------------------------------------------------
+
+
+class _FakeEntry:
+    """A C entry that records its calls and how often its argtypes are set."""
+
+    def __init__(self):
+        self.calls = []
+        self.argtypes_sets = 0
+        self._argtypes = None
+        self.restype = None
+
+    @property
+    def argtypes(self):
+        return self._argtypes
+
+    @argtypes.setter
+    def argtypes(self, value):
+        self.argtypes_sets += 1
+        self._argtypes = value
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _fake_kernel(monkeypatch, load):
+    """The kernel branch on CPU tensors, with ``load`` as the loader and a
+    stand-in for PyTorch's current-stream accessor."""
+    monkeypatch.setattr(ln, "_wants_kernel", lambda t: True)
+    monkeypatch.setattr(ln._launch._build, "load", load)
+    monkeypatch.setattr(
+        torch._C, "_cuda_getCurrentRawStream", lambda index: 0x5000 + index, raising=False
+    )
+
+
+def test_launch_binds_once_and_hands_over_the_current_stream(monkeypatch):
+    entry = _FakeEntry()
+    lib = type("Lib", (), {"layernorm": entry})()
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return lib
+
+    _fake_kernel(monkeypatch, load)
+    x, w, b = (torch.from_numpy(a) for a in _inputs((2, 3, 64), 15))
+    before = ln.layer_norm.launches
+    for _ in range(3):
+        out = ln.layer_norm(x.to(torch.bfloat16), w, b, eps=1e-6)
+        assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert loads == ["layernorm"] * 3  # the loader is asked every time
+    assert entry.argtypes_sets == 1 and len(entry.argtypes) == 9
+    assert ln.layer_norm.launches == before + 3
+    for args in entry.calls:
+        assert args[4:8] == (6, 64, 1e-6, 1)
+        assert args[8] == 0x5000 + x.get_device()
+
+
+def test_a_failing_load_is_asked_again(monkeypatch):
+    """Only a loaded library's binding is kept: after a failed build the
+    next call loads anew, and raises again if the loader does."""
+    entry = _FakeEntry()
+    lib = type("Lib", (), {"layernorm": entry})()
+    attempts = []
+
+    def load(name):
+        attempts.append(name)
+        if len(attempts) <= 2:
+            raise RuntimeError(f"cannot build {name}")
+        return lib
+
+    _fake_kernel(monkeypatch, load)
+    x, w, b = (torch.from_numpy(a) for a in _inputs((4, 32), 16))
+    before = ln.layer_norm.launches
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot build layernorm"):
+            ln.layer_norm(x, w, b)
+    assert ln.layer_norm.launches == before and entry.calls == []
+    for _ in range(2):
+        ln.layer_norm(x, w, b)
+    assert len(attempts) == 4 and entry.argtypes_sets == 1
+    assert ln.layer_norm.launches == before + 2
+
+
+def test_a_new_library_is_bound_anew(monkeypatch):
+    """The binding is keyed on the loaded library, so a rebuilt (or another
+    test's) library gets its own argtypes."""
+    libs = [type("Lib", (), {"layernorm": _FakeEntry()})() for _ in range(2)]
+    current = []
+    _fake_kernel(monkeypatch, lambda name: current[-1])
+    x, w, b = (torch.from_numpy(a) for a in _inputs((4, 32), 17))
+    for lib in libs + libs[1:]:
+        current.append(lib)
+        ln.layer_norm(x, w, b)
+    assert [lib.layernorm.argtypes_sets for lib in libs] == [1, 1]
+    assert [len(lib.layernorm.calls) for lib in libs] == [1, 2]
+
+
+def test_prepare_leaves_ready_operands_alone():
+    """float32 contiguous parameters and a contiguous 2-D input go to the
+    kernel as they are: no cast, copy or reshape on the launch path."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs((6, 32), 18))
+    x2, w2, b2 = ln._prepare(x, w, b)
+    assert x2 is x and w2 is w and b2 is b

@@ -171,9 +171,7 @@ def _fake_launch(monkeypatch, module):
 
     monkeypatch.setattr(module, "_wants_kernel", lambda t: True)
     monkeypatch.setattr(module._launch, "bind", bind)
-    monkeypatch.setattr(
-        torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})
-    )
+    monkeypatch.setattr(module._launch, "current_stream", lambda index: 0)
     return calls
 
 
