@@ -213,21 +213,16 @@ cudaError_t launch(const void* x, const float* scale, const float* bias,
   const int blocks = (rows + kWarps - 1) / kWarps;
   const int iters = (d / kN + 31) / 32;
   if (d % kN == 0 && iters <= kMaxIters) {
-    // Exactly the registers a lane's share of the row needs: fewer registers
-    // a warp, more rows in flight per SM.
-    switch (iters) {
-      case 1: return launch_vec<T, 1>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 2: return launch_vec<T, 2>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 3: return launch_vec<T, 3>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 4: return launch_vec<T, 4>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 5: return launch_vec<T, 5>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 6: return launch_vec<T, 6>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 7: return launch_vec<T, 7>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      case 8: return launch_vec<T, 8>(x, scale, bias, out, rows, d, eps, blocks, stream);
-      default:
-        return launch_vec<T, kMaxIters>(x, scale, bias, out, rows, d, eps, blocks,
-                                        stream);
-    }
+    if (iters <= 1)
+      return launch_vec<T, 1>(x, scale, bias, out, rows, d, eps, blocks, stream);
+    if (iters <= 2)
+      return launch_vec<T, 2>(x, scale, bias, out, rows, d, eps, blocks, stream);
+    if (iters <= 4)
+      return launch_vec<T, 4>(x, scale, bias, out, rows, d, eps, blocks, stream);
+    if (iters <= 8)
+      return launch_vec<T, 8>(x, scale, bias, out, rows, d, eps, blocks, stream);
+    return launch_vec<T, kMaxIters>(x, scale, bias, out, rows, d, eps, blocks,
+                                    stream);
   }
   layernorm_any_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), scale, bias, static_cast<T*>(out), rows, d,

@@ -24,16 +24,15 @@
 // query rows of the flat (B H L, Dh) arrays, where each (b, h) slab is L
 // consecutive rows, so one 64-row TMA box (128-byte swizzle) covers several
 // slabs. P V is wgmma with V from shared memory, and the output leaves the
-// accumulator fragments as bfloat16 pairs. By length (ops/attention.py
-// tile_plan):
+// accumulator fragments as bfloat16 pairs. By length (dispatch_tiles):
 //   L <= 32   masked_mha_fwd_packed_kernel: floor(64 / L) consecutive slabs
 //             in one tile (3 at L = 17: 51 of 64 rows, 21,846 blocks at
 //             B = 4096 instead of 65,536 of 17 rows). S only within each
-//             slab, summed in order over d on the CUDA cores, and each row's
-//             softmax by one warp, as the plain version's float32 product
-//             and warp softmax do them: P is bit-equal to its P (below, why
-//             that matters), and goes into a swizzled tile (0 off the row's
-//             slab) for wgmma_ss.
+//             slab, summed in order over d on the CUDA cores as the plain
+//             version's _scores sums it, and each row's softmax over the
+//             tree of torch.softmax's warp softmax (below, why that
+//             matters); P goes into a swizzled tile (0 off the row's slab)
+//             for wgmma_ss.
 //   L > 32    masked_mha_fwd_long_tile_kernel: one slab a tile, ceil(L / 64)
 //             query tiles against all L keys at once: S by wgmma_ss at N =
 //             64, 128 or 256 with K as the K-major B operand, the softmax on
@@ -46,7 +45,10 @@
 //             -inf, so P is exactly 0 there.
 // Rows past the tensor are TMA's zeros and never stored. Q and K columns
 // past Dh are TMA's zeros, so S takes all the columns of its boxes; P V
-// computes 64 or 128 columns and stores Dh.
+// computes 64 or 128 columns and stores Dh. The inputs must be finite: P V
+// multiplies P = 0 by the V rows of the tile's other slabs and of the next
+// slab, and 0 * Inf is NaN, so an Inf in one (b, h) slab's V would turn its
+// neighbours' rows to NaN, where the plain version keeps slabs apart.
 //
 // float32 (the correctness route; no main path on the card runs it) and
 // bfloat16 at a Dh that is not a multiple of 16 keep the scalar designs:
@@ -366,20 +368,23 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 //
 // A block takes `slabs` (>= 2) consecutive (b, h) slabs, slabs * L <= 64
 // rows of the flat arrays, with Q, K and V by TMA. The scores and the
-// softmax repeat the plain version's float32 arithmetic step for step, so P
-// rounds to the same bfloat16 values where its float32 product sums in
-// order (as cuBLAS does at the set transformer's shapes): S is summed over d
-// in order on the CUDA cores (bfloat16 products are exact in float32), only
-// within each slab (slabs * L * L dots, not 64 x 64), and each row's softmax
-// as one warp's, key j in lane j, max and sum by the same butterfly. A wgmma
-// sum in another order moves S by an ulp, and where a causal row has few
-// keys, P near 1 then flips a bfloat16 ulp, which shows as 2^-6 in the
-// output. A thread scores a unit of one key against four query rows (four
-// running sums, the bfloat16 operands widened in registers); the scores wait
-// in shared memory in Q's and K's place for the row softmax, a thread a row.
-// P (bfloat16)
-// goes into a swizzled (64, 64) tile, keys of another slab and rows past the
-// tile left 0, and O = P V is one wgmma_ss per k16 step.
+// softmax repeat the plain version's float32 arithmetic step for step: S is
+// summed over d in order on the CUDA cores, as its _scores sums it
+// (bfloat16 products are exact in float32), only within each slab (slabs *
+// L * L dots, not 64 x 64), and each row's softmax as torch.softmax's warp
+// softmax takes it, key j in lane j, max and sum by its butterfly. Rows with
+// few keys need this: a sum in another order moves S or the row's sum by an
+// ulp, P near 1 then flips a bfloat16 ulp, and the output moves by 2^-8 |v|,
+// beyond the bfloat16 check's limit (a wgmma S did that at (4096, 16, 17,
+// 96) causal; cuBLAS's float32 product, which sums in another order below
+// L = 16, at (4096, 16, 9, 96)). The butterfly is PyTorch's and not
+// documented: a release that sums another way can fail that check on
+// rounding alone. A thread scores a unit of one key against four query rows
+// (four running sums, the bfloat16 operands widened in registers); the
+// scores wait in shared memory in Q's and K's place for the row softmax, a
+// thread a row. P (bfloat16) goes into a swizzled (64, 64) tile, keys of
+// another slab and rows past the tile left 0, and O = P V is one wgmma_ss
+// per k16 step, whose sums run in another order than the plain version's.
 constexpr int kPackedL = 32;  // the longest slab packed: two to a tile
 
 // Index of score (r, j) in the (64, 64) float32 score block: the 4-float
@@ -794,18 +799,12 @@ cudaError_t launch_long_tile(const CUtensorMap* maps, const void* pad,
   return cudaGetLastError();
 }
 
-// The tile plan (ops/attention.py tile_plan): keys = the score block's
-// width, 64 (L <= 32: `slabs` slabs a tile; L <= 64: one), 128 or 256 (one
-// slab, its query tiles in turn).
+// The tile plan by length: up to L = 32, floor(64 / L) slabs a tile on the
+// packed kernel; above, one slab a tile on the query-tile kernel, with a
+// score block 64 (L <= 64), 128 or 256 keys wide.
 cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
                            const void* pad, void* out, int B, int H, int L,
-                           int Dh, int causal, int slabs, int keys,
-                           cudaStream_t stream) {
-  const int want_keys = L <= kTile ? kTile : L <= 128 ? 128 : 256;
-  const bool packed = L <= kPackedL;
-  const bool plan_ok = keys == want_keys &&
-                       (packed ? slabs >= 2 && slabs * L <= kTile : slabs == 1);
-  if (Dh % 16 || Dh > 128 || !plan_ok) return cudaErrorInvalidValue;
+                           int Dh, int causal, cudaStream_t stream) {
   const int BH = B * H;
   const uint64_t rows = static_cast<uint64_t>(BH) * L;
   CUtensorMap maps[3];
@@ -814,13 +813,15 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
     if (!hg::tensor_map(&maps[i], src[i], rows, Dh, Dh, 64))
       return cudaErrorInvalidValue;
   const bool wide = Dh > 64;
-  if (packed)
+  if (L <= kPackedL) {
+    const int slabs = kTile / L;
     return wide ? launch_packed<2>(maps, pad, out, BH, H, L, Dh, slabs, causal, stream)
                 : launch_packed<1>(maps, pad, out, BH, H, L, Dh, slabs, causal, stream);
-  if (keys == 64)
+  }
+  if (L <= kTile)
     return wide ? launch_long_tile<2, 64>(maps, pad, out, BH, H, L, Dh, causal, stream)
                 : launch_long_tile<1, 64>(maps, pad, out, BH, H, L, Dh, causal, stream);
-  if (keys == 128)
+  if (L <= 128)
     return wide ? launch_long_tile<2, 128>(maps, pad, out, BH, H, L, Dh, causal, stream)
                 : launch_long_tile<1, 128>(maps, pad, out, BH, H, L, Dh, causal, stream);
   return wide ? launch_long_tile<2, 256>(maps, pad, out, BH, H, L, Dh, causal, stream)
@@ -844,28 +845,21 @@ extern "C" int masked_mha_fwd_smem_bytes(int dh, int keys) {
   }
 }
 
-// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. keys > 0
-// takes the bfloat16 tile kernels with the tile plan (slabs, keys); keys = 0
-// the scalar kernels. Returns the cudaError_t of the launch (0 = success).
+// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. bfloat16 at
+// Dh a multiple of 16 takes the tile kernels, the rest the scalar ones.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                               const void* pad, void* out, int B, int H, int L,
-                              int Dh, int causal, int dtype, int slabs,
-                              int keys, void* stream) {
+                              int Dh, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || H < 1 || L < 1 || L > 256 || Dh < 8 || Dh > 128 || Dh % 8)
+  if (B < 1 || H < 1 || L < 1 || L > 256 || Dh < 8 || Dh > 128 || Dh % 8 ||
+      (L > 64 && Dh % 16) || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (keys > 0) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch_tiles(q, k, v, pad, out, B, H, L, Dh,
-                                           causal, slabs, keys, s));
-  }
-  if (dtype == 0) {
-    if (L <= 64)
-      return launch_short<float>(q, k, v, pad, out, B, H, L, Dh, causal, s);
-    if (Dh % 16) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_long_f32(q, k, v, pad, out, B, H, L, Dh, causal, s);
-  }
-  if (dtype == 1 && L <= 64)
-    return launch_short<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && Dh % 16 == 0)
+    return static_cast<int>(dispatch_tiles(q, k, v, pad, out, B, H, L, Dh, causal, s));
+  if (L <= 64)
+    return dtype == 0
+               ? launch_short<float>(q, k, v, pad, out, B, H, L, Dh, causal, s)
+               : launch_short<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
+  return launch_long_f32(q, k, v, pad, out, B, H, L, Dh, causal, s);
 }

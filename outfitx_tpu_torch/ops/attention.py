@@ -18,19 +18,17 @@ kernels are held against on the card.
 
 The bfloat16 forward at Dh a multiple of 16 works on tiles of 64 query rows
 of the flat (B H L, Dh) arrays, where each (b, h) slab is L consecutive
-rows. ``tile_plan`` says how a call is cut into tiles, and the C entry takes
-its plan: up to L = 32 (the set transformer), ``64 // L`` slabs packed into
-one tile, each row seeing only its own slab's keys, with P bit-equal to the
-plain version's; above, one slab's query tiles against all of its keys at
-once, on the tensor cores. float32 (the correctness route) and bfloat16 at
-other Dh run the scalar kernels.
+rows; the C entry cuts a call into tiles from (L, Dh, dtype): up to L = 32
+(the set transformer), ``64 // L`` slabs packed into one tile, each row
+seeing only its own slab's keys, S summed in order over Dh on the CUDA cores
+as ``mha_reference`` sums it; above, one slab's query tiles against all of
+its keys at once, on the tensor cores. float32 (the correctness route) and
+bfloat16 at other Dh run the scalar kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import functools
 
 import torch
 
@@ -44,49 +42,31 @@ _DTYPE_CODES = _launch.DTYPE_CODES
 MAX_L = 256  # forward
 SHORT_L = 64  # backward; above it the forward wants Dh a multiple of 16
 MAX_DH = 128
-TILE_ROWS = 64  # query rows of a tile (wgmma's M)
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-@dataclasses.dataclass(frozen=True)
-class TilePlan:
-    """How the forward kernel cuts a call of length L into tiles.
-
-    keys: width of a tile's score block, 64, 128 or 256 (the tile
-        kernels); 0 for the scalar kernels, which need no plan.
-    slabs: (b, h) slabs in one 64-row tile, ``64 // L``: two or more (L <=
-        32) take the packed kernel, one the query-tile kernel.
-    q_tiles: 64-row query tiles of one slab (1 up to L = 64), which one
-        block takes in turn, loading K and V once.
-    """
-
-    keys: int
-    slabs: int
-    q_tiles: int
-
-    def blocks(self, bh: int) -> int:
-        """Blocks the tile kernels launch for B * H = bh slabs."""
-        return -(-bh // self.slabs)
-
-
-@functools.lru_cache(maxsize=None)
-def tile_plan(l: int, dh: int, dtype: torch.dtype) -> TilePlan:
-    """The forward kernel's tile plan for length l, head width dh and dtype.
-    The tile kernels take bfloat16 at dh a multiple of 16."""
-    if dtype != torch.bfloat16 or dh % 16:
-        return TilePlan(keys=0, slabs=0, q_tiles=0)
-    if l <= TILE_ROWS:
-        return TilePlan(keys=TILE_ROWS, slabs=TILE_ROWS // l, q_tiles=1)
-    return TilePlan(keys=128 if l <= 128 else 256, slabs=1, q_tiles=-(-l // TILE_ROWS))
+def _scores(q, k):
+    """Q K^T in float32, summed over Dh in order (d = 0, 1, ...), one
+    product and one addition at a time. The order is this function's own,
+    not a library's: the kernels' float32 sums of S follow it (bfloat16
+    products are exact in float32, so a fused multiply-add gives the same
+    sums), and a bfloat16 P that rounds on S's last bit cannot flip with a
+    library's choice of summation order."""
+    qf, kf = q.float(), k.float()
+    s = qf.new_zeros((*qf.shape[:-1], kf.shape[-2]))
+    for d in range(qf.shape[-1]):
+        s += qf[..., :, d, None] * kf[..., None, :, d]
+    return s
 
 
 def _probs(q, k, pad_mask, causal: bool):
-    """float32 softmax of the masked scores: operands widened exactly, the
-    masks where-set to -1e9 (so a fully masked row is uniform, not NaN)."""
+    """float32 softmax of the masked scores: operands widened exactly, S by
+    ``_scores``, the masks where-set to -1e9 (so a fully masked row is
+    uniform, not NaN)."""
     dh = q.shape[-1]
     scale = 1.0 / (dh**0.5)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = _scores(q, k) * scale
     scores = scores.masked_fill(pad_mask[:, None, None, :], _NEG)
     if causal:
         l = q.shape[2]
@@ -167,12 +147,11 @@ def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
     _check(q, k, v, pad_mask)
     fn = _launch.bind(_FWD, _FWD_ARGTYPES)
     b, h, l, dh = q.shape
-    plan = tile_plan(l, dh, q.dtype)
     out = torch.empty_like(q)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
         out.data_ptr(), b, h, l, dh, int(causal), _DTYPE_CODES[q.dtype],
-        plan.slabs, plan.keys, _launch.current_stream(q.get_device()),
+        _launch.current_stream(q.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"{_FWD} launch failed: cudaError {err}")
@@ -229,7 +208,9 @@ def masked_mha(q, k, v, pad_mask, causal: bool = False):
 
     On the card the forward launches its CUDA kernel and adds one to
     ``masked_mha.launches``, the backward launches its own and adds one to
-    ``masked_mha.bwd_launches``; on the CPU both run the plain versions."""
+    ``masked_mha.bwd_launches``; on the CPU both run the plain versions.
+    The bfloat16 forward on the card wants finite inputs: its tiles multiply
+    P = 0 by neighbouring slabs' values, so an Inf there gives NaN here."""
     return MaskedMHA.apply(q, k, v, pad_mask, causal)
 
 

@@ -5,9 +5,9 @@ they are held against the JAX Pallas kernels (interpret mode off-TPU) and
 the JAX reference, on the same numpy inputs, in float32 at 1e-5 (bfloat16
 within 2 ulps at O(1)). The CUDA kernels themselves are held against the
 same plain versions on the card by ``chip_smoke.py``. The bfloat16
-forward's tile walk (``tile_plan``: packed slabs up to L = 32, one slab's
-query tiles above) is emulated here in torch and held bit-equal to the
-plain version, and the launch is checked to hand the kernel its plan.
+forward's tile walk (packed slabs up to L = 32, one slab's query tiles
+above) is emulated here in torch and held bit-equal to the plain version,
+and the launch is checked to hand the C entry what it plans from.
 """
 
 import numpy as np
@@ -20,12 +20,10 @@ from outfitx_tpu.ops.attention import _mha_bwd_pallas_impl, _mha_reference
 from outfitx_tpu.ops.attention import masked_mha as jax_masked_mha
 from outfitx_tpu_torch.ops import attention
 from outfitx_tpu_torch.ops.attention import (
-    TILE_ROWS,
     _masked_mha_bwd_cuda,
     masked_mha,
     mha_bwd_reference,
     mha_reference,
-    tile_plan,
 )
 
 torch.set_num_threads(1)
@@ -303,6 +301,17 @@ def test_backward_wrapper_rejects_a_g_it_cannot_take(monkeypatch, bad):
 
 # ---- the bfloat16 forward's tile walk --------------------------------------
 
+TILE_ROWS = 64  # query rows of a tile (wgmma's M)
+
+
+def _tile_plan(l):
+    """The C entry's plan for length l (``csrc/masked_mha_fwd.cu``
+    ``dispatch_tiles``): slabs a tile (``64 // L`` up to L = 32, then one),
+    the score block's width in keys, and the query tiles of a slab, which
+    one block takes in turn."""
+    keys = TILE_ROWS if l <= TILE_ROWS else 128 if l <= 128 else 256
+    return max(TILE_ROWS // l, 1), keys, -(-l // TILE_ROWS)
+
 
 def _box(flat, row, n):
     """n rows of a flat (rows, Dh) array from ``row`` on, as a TMA box
@@ -316,8 +325,8 @@ def _box(flat, row, n):
 def _emulate_tiles(q, k, v, pad, causal):
     """The bfloat16 kernels' walk (``csrc/masked_mha_fwd.cu``: the packed
     kernel where a tile holds two or more slabs, the query-tile kernel else)
-    in float32 torch, block by block and tile by tile, with the plan the
-    launch takes. Each tile scores 64 query
+    in float32 torch, block by block and tile by tile, with the C entry's
+    plan. Each tile scores 64 query
     rows against its ``keys``-wide window of the flat arrays; a key outside
     the row's own slab (another slab, past L, past the array) is -inf, a pad
     or causal key of the slab -1e9 by the slab-local index. P is then 0
@@ -326,24 +335,24 @@ def _emulate_tiles(q, k, v, pad, causal):
     once; the rest stay NaN."""
     b, h, l, dh = q.shape
     bh = b * h
-    plan = tile_plan(l, dh, torch.bfloat16)
-    packed = plan.slabs > 1
+    n_slabs, keys, q_tiles = _tile_plan(l)
+    packed = n_slabs > 1
     fq, fk, fv = (t.reshape(bh * l, dh) for t in (q, k, v))
     out = torch.full_like(fq, float("nan"))
     scale = 1.0 / (dh**0.5)
     r = torch.arange(TILE_ROWS)[:, None]
-    c = torch.arange(plan.keys)[None, :]
-    for blk in range(plan.blocks(bh)):
-        slab0 = blk * plan.slabs
+    c = torch.arange(keys)[None, :]
+    for blk in range(-(-bh // n_slabs)):
+        slab0 = blk * n_slabs
         row0 = slab0 * l
-        kt, vt = _box(fk, row0, plan.keys), _box(fv, row0, plan.keys)
-        for tile in range(plan.q_tiles):
+        kt, vt = _box(fk, row0, keys), _box(fv, row0, keys)
+        for tile in range(q_tiles):
             qt = _box(fq, row0 + TILE_ROWS * tile, TILE_ROWS)
-            s = torch.matmul(qt, kt.T) * scale
+            s = attention._scores(qt, kt) * scale
             if packed:  # row r is row r % L of slab slab0 + r // L
                 sl = r // l
                 slab = slab0 + sl
-                live = (sl < plan.slabs) & (slab < bh)
+                live = (sl < n_slabs) & (slab < bh)
                 lo, i_loc, flat = sl * l, r - sl * l, row0 + r
             else:  # row r is query tile * 64 + r of slab slab0
                 slab = torch.full_like(r, slab0)
@@ -367,12 +376,16 @@ def _emulate_tiles(q, k, v, pad, causal):
 
 
 # (B, H, L, causal): B * H leaves the last pack ragged wherever a tile
-# packs more than one slab (L = 9: 12 slabs, 7 a tile; 17: 35, 3; 21: 10,
-# 3; 32: 9, 2); from L = 33 a tile holds one slab.
+# packs more than one slab (L = 5: 15 slabs, 12 a tile; 8: 15, 8; 9: 12, 7;
+# 13: 14, 4; 16: 15, 4; 17: 35, 3; 21: 10, 3; 32: 9, 2); L = 1 packs 64
+# slabs a tile and L = 16 fills all 64 rows; from L = 33 a tile holds one
+# slab, and L = 129 and 256 take the widest score block.
 TILE_CASES = [
     (3, 4, 9, False), (7, 5, 17, False), (7, 5, 17, True), (5, 2, 21, False),
     (3, 3, 32, True), (3, 2, 33, False), (2, 3, 50, False), (2, 3, 64, True),
     (2, 3, 65, False), (2, 2, 77, True), (2, 2, 196, False),
+    (5, 3, 1, False), (3, 5, 5, True), (3, 5, 8, False), (2, 7, 13, True),
+    (3, 5, 16, False), (3, 5, 16, True), (2, 3, 129, True), (2, 1, 256, False),
 ]
 
 
@@ -386,29 +399,6 @@ def test_tile_walk_matches_reference_and_pallas(b, h, l, causal):
     jq, jk, jv, jpad = (jnp.asarray(a) for a in (q, k, v, pad))
     want = np.asarray(jax_masked_mha(jq, jk, jv, jpad, causal=causal, impl="pallas"))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
-
-
-@pytest.mark.parametrize(
-    "l, slabs, keys, q_tiles",
-    [
-        (1, 64, 64, 1), (9, 7, 64, 1), (17, 3, 64, 1), (21, 3, 64, 1),
-        (32, 2, 64, 1), (33, 1, 64, 1), (64, 1, 64, 1), (65, 1, 128, 2),
-        (128, 1, 128, 2), (129, 1, 256, 3), (196, 1, 256, 4), (256, 1, 256, 4),
-    ],
-)
-def test_tile_plan(l, slabs, keys, q_tiles):
-    plan = tile_plan(l, 64, torch.bfloat16)
-    assert (plan.slabs, plan.keys, plan.q_tiles) == (slabs, keys, q_tiles)
-    assert plan.slabs * min(l, TILE_ROWS) <= TILE_ROWS and l <= plan.keys
-    # float32 and bfloat16 at a Dh that is no multiple of 16: scalar kernels.
-    assert tile_plan(l, 64, torch.float32).keys == 0
-    assert tile_plan(l, 24, torch.bfloat16).keys == 0
-
-
-def test_tile_plan_blocks_cover_every_slab():
-    assert tile_plan(17, 96, torch.bfloat16).blocks(4096 * 16) == 21846
-    assert tile_plan(17, 96, torch.bfloat16).blocks(35) == 12
-    assert tile_plan(196, 64, torch.bfloat16).blocks(2048 * 12) == 2048 * 12
 
 
 class _FakeEntry:
@@ -439,11 +429,14 @@ class _FakeEntry:
     [
         (17, 96, torch.bfloat16), (50, 64, torch.bfloat16), (77, 64, torch.bfloat16),
         (196, 64, torch.bfloat16), (17, 96, torch.float32), (17, 24, torch.bfloat16),
+        (9, 16, torch.bfloat16), (33, 48, torch.bfloat16), (256, 128, torch.bfloat16),
+        (65, 64, torch.float32), (9, 8, torch.bfloat16),
     ],
 )
 def test_forward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype):
-    """The C entry receives the shape, the dtype code, the plan of
-    ``tile_plan`` and the current stream's handle, once per call."""
+    """The C entry receives what it plans the tiles from (the shape, the
+    causal flag and the dtype code) and the current stream's handle, once
+    per call, and nothing else."""
     entry = _FakeEntry()
     lib = type("Lib", (), {"masked_mha_fwd": entry})()
     monkeypatch.setattr(attention, "_wants_kernel", lambda t: True)
@@ -457,10 +450,8 @@ def test_forward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype
     for _ in range(2):
         masked_mha(q, q.clone(), q.clone(), pad, causal=True)
     assert masked_mha.launches == before + 2
-    assert entry.argtypes_sets == 1 and len(entry.argtypes) == 14
-    plan = tile_plan(l, dh, dtype)
+    assert entry.argtypes_sets == 1 and len(entry.argtypes) == 12
     for args in entry.calls:
-        assert len(args) == 14
+        assert len(args) == 12
         assert args[5:11] == (7, 5, l, dh, 1, 1 if dtype == torch.bfloat16 else 0)
-        assert args[11:13] == (plan.slabs, plan.keys)
-        assert args[13] == 0x7000 + q.get_device()
+        assert args[11] == 0x7000 + q.get_device()
