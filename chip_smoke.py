@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
             L=196, 50, 77 causal and 256, and at the shapes that test the
             bfloat16 forward's tiling: a ragged last pack of slabs at L=17,
             L=21, 32, 33 (3, 2, 1 slabs a tile), 64, 65 and 129 (N=128 and
-            256 score widths), 256 at Dh=128, Dh=16; attn_block at the SigLIP text
+            256 score widths), 256 at Dh=128, Dh=16; the backward at the
+            shapes that test its tiling: a ragged last pack at L=17, L=9,
+            13, 21, 32 (7, 4, 3, 2 slabs a tile), 33 and 64 (one slab, the
+            64-slot softmax tree), Dh=16, 48, 64 and 128, and the full batch
+            at L=9, 13 and 17, causal and not; attn_block at the SigLIP text
             tower's 2048x64x768 with fully and almost fully masked rows, and
             at B=2047; mlp_fused at 131072 and 401408 (vision) x768x3072 and
             at 130,001 rows; layernorm at 136, 69,632 and 401,408 rows,
@@ -37,8 +41,8 @@ Phases, each printing one JSON line:
             validation pass and the final checkpoint; (c) ``CIRTrainer``
             warm-started from that checkpoint for 2 steps at B=512 and one
             recall evaluation; the launch counts of (b) and (c) are checked;
-            then the CP train step's time, outfits/s, peak memory and a
-            profile by kernel;
+            then the CP train step's time, outfits/s, peak memory, a
+            profile by kernel and the attention backward's device ms a step;
 6. precompute  ``PrecomputeRunner`` with the SigLIP item encoder at full
             width (ViT-B/16 at 196 tokens, text at L=64, d=768, 12 layers,
             random weights from seed 0): 4,096 synthetic items at batch 2048
@@ -201,6 +205,20 @@ CLIP_ITEMS = 64
 CPU_CHECK_ITEMS = 32
 # The backward is also held at the training envelope's microbatch.
 BWD_SHAPES = KERNEL_SHAPES + [(3072, 16, 17, 96)]
+# The bfloat16 backward's tiling (csrc/masked_mha_bwd.cu dispatch_tiles):
+# B*H = 35 slabs at L=17 leave the last pack of 3 ragged; L=9, 13, 21 and 32
+# pack 7, 4, 3 and 2 slabs a tile; L=33 and 64 take one slab a tile and the
+# softmax's 64-slot tree; Dh=16 (one 32-column box, half of it TMA's
+# zeros), 48, 64 and 128 (four boxes). Then the full batch at L=9 and 13
+# (L=17 is in BWD_SHAPES), where a P near 1 rounds on the last bit of S and
+# of the row's sum and Pb feeds dV directly. Each in float32 and bfloat16,
+# causal and not.
+BWD_TILE_SHAPES = [
+    (7, 5, 17, 96), (5, 4, 9, 96), (4, 5, 13, 64), (5, 4, 21, 64),
+    (6, 4, 32, 32), (4, 3, 33, 48), (4, 3, 64, 64), (5, 3, 17, 16),
+    (3, 4, 17, 128), (2, 3, 64, 128),
+    (4096, 16, 9, 96), (4096, 16, 13, 96),
+]
 
 # The http phase: serve() with spare rows and the three coalescers on, its
 # clients, the age after which the replica drains (the phase's checks must
@@ -535,6 +553,12 @@ def _dynamic_smem():
             out[f"masked_mha_fwd: query tiles, Dh<={dh}, keys={keys}"] = (
                 lib.masked_mha_fwd_smem_bytes(dh, keys)
             )
+    lib = _build.load("masked_mha_bwd")
+    for dh in (32, 64, 96, 128):
+        for slots in (32, 64):
+            out[f"masked_mha_bwd: tiles, Dh<={dh}, slots={slots}"] = (
+                lib.masked_mha_bwd_smem_bytes(dh, slots)
+            )
     return out
 
 
@@ -562,8 +586,8 @@ def _compare(got, ref, dtype, f32_tol=F32_TOL):
     return float(err.max()), ok
 
 
-def _cases():
-    for si, shape in enumerate(BWD_SHAPES):
+def _cases(shapes):
+    for si, shape in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 yield si, shape, dtype, causal
@@ -725,29 +749,17 @@ def _stream_check():
     return out
 
 
-def phase_kernels():
-    from outfitx_tpu_torch.ops.attention import (
-        _masked_mha_bwd_cuda,
-        _masked_mha_cuda,
-        mha_bwd_reference,
-        mha_reference,
-    )
+def _bwd_kernel_checks():
+    """masked_mha_bwd against its plain version on the card at BWD_SHAPES
+    and BWD_TILE_SHAPES, float32 and bfloat16, causal and not: dq, dk and
+    dv finite and within the dtype's limit, masked keys' dk and dv exactly
+    0."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_bwd_cuda, mha_bwd_reference
 
-    fwd_cases, bwd_cases = [], []
-    for si, shape, dtype, causal in _cases():
+    cases = []
+    for si, shape, dtype, causal in _cases(BWD_SHAPES + BWD_TILE_SHAPES):
         q, k, v, pad = attention_inputs(shape, dtype, seed=si)
         tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
-        if shape in KERNEL_SHAPES:
-            got = _masked_mha_cuda(q, k, v, pad, causal)
-            ref = mha_reference(q, k, v, pad, causal)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"non-finite masked_mha_fwd output at {tag}")
-            err, ok = _compare(got, ref, dtype)
-            case = {**tag, "max_abs_err": err, "ok": ok}
-            fwd_cases.append(case)
-            check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
-
         gen = torch.Generator(device="cuda").manual_seed(100 + si)
         g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         got = _masked_mha_bwd_cuda(q, k, v, pad, g, causal)
@@ -763,10 +775,32 @@ def phase_kernels():
         masked = (pad & ~pad[:, :1])[:, None, :, None].expand(shape)
         case["masked_keys_zero"] = all(bool((t[masked] == 0).all()) for t in got[1:])
         case["max_abs_err"] = max(case[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
-        bwd_cases.append(case)
+        cases.append(case)
         check(all(case[f"{n}_ok"] for n in ("dq", "dk", "dv")),
               f"masked_mha_bwd disagrees with its plain version: {case}")
         check(case["masked_keys_zero"], f"masked_mha_bwd: masked keys not zero: {case}")
+        del q, k, v, g, got, ref
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_kernels():
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+
+    fwd_cases = []
+    for si, shape, dtype, causal in _cases(KERNEL_SHAPES):
+        q, k, v, pad = attention_inputs(shape, dtype, seed=si)
+        tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
+        got = _masked_mha_cuda(q, k, v, pad, causal)
+        ref = mha_reference(q, k, v, pad, causal)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"non-finite masked_mha_fwd output at {tag}")
+        err, ok = _compare(got, ref, dtype)
+        case = {**tag, "max_abs_err": err, "ok": ok}
+        fwd_cases.append(case)
+        check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
+    bwd_cases = _bwd_kernel_checks()
     tower_mha, block_cases, mlp_cases = _tower_kernel_checks()
     fwd_cases += tower_mha
     ln_cases, ln_special, ln_bwd = _layernorm_checks()
@@ -1219,6 +1253,9 @@ def phase_train():
     cp_trainer, cp = _cp_trainer_run(cfg, cp_data, root)
     cir = _cir_trainer_run(cfg, cir_data, cp_trainer, root)
     timing = _step_timing(cp_trainer)
+    bwd_kind = timing["train_step_profile"]["by_kind"].get("masked_mha_bwd", {})
+    timing["masked_mha_bwd_ms_per_step"] = bwd_kind.get("device_ms", 0.0)
+    timing["masked_mha_bwd_launches_per_step"] = bwd_kind.get("calls", 0)
     emit({
         "phase": "train",
         "d_embed": cfg.d_embed, "n_layers": cfg.transformer.n_layers,

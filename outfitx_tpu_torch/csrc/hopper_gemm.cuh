@@ -78,24 +78,27 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor map of a row-major matrix (rows, cols) of bfloat16 (elem 2) or
-// float (elem 4), row stride ld elements, moved in boxes of (box_rows, 128
-// bytes of columns) with the 128-byte swizzle; out-of-bounds elements read as
-// zero and are not written. False if it cannot be made.
+// float (elem 4), row stride ld elements, moved in boxes of (box_rows,
+// `swizzle` bytes of columns) with the 128-byte (or 64-byte) swizzle;
+// out-of-bounds elements read as zero and are not written. False if it
+// cannot be made.
 inline bool tensor_map(CUtensorMap* map, const void* base, uint64_t rows,
                        uint64_t cols, uint64_t ld, uint32_t box_rows,
-                       int elem = 2) {
+                       int elem = 2, int swizzle = 128) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || (ld * elem) % 16)
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || (ld * elem) % 16 ||
+      (swizzle != 128 && swizzle != 64))
     return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem), box_rows};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(swizzle / elem), box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map,
             elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
             2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -170,6 +173,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, int col,
       "r"(col), "r"(row), "r"(smem_u32(src))
       : "memory");
 }
+// A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from shared into global memory, by the bulk-copy engine; completes in the
+// thread's bulk group like tma_store.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -213,21 +226,29 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Regs));
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles leave
-// LBO at 16 bytes (unused); N-major tiles name the 64-column box stride.
+// Shared-memory matrix descriptor; layout 1 is the 128-byte swizzle, 2 the
+// 64-byte one. K-major tiles leave LBO at 16 bytes (unused); N-major tiles
+// name the stride of their column boxes (LBO) and of 8-row groups (SBO).
 __device__ __forceinline__ uint64_t smem_desc(const void* tile, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint64_t layout = 1) {
   const uint32_t addr = smem_u32(tile);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) {
   return smem_desc(tile, 16, 1024);
 }
 __device__ __forceinline__ uint64_t desc_nmajor(const void* tile) {
   return smem_desc(tile, kBoxBytes, 1024);
+}
+// N-major tile of (64 rows, 32 columns) boxes in the 64-byte swizzle, as
+// TMA writes them with CU_TENSOR_MAP_SWIZZLE_64B: row r at r * 64 bytes,
+// 8-row groups 512 bytes apart, boxes kBox64Bytes apart; a k16 step is
+// +1024 bytes.
+constexpr int kBox64Bytes = 64 * 32 * 2;
+__device__ __forceinline__ uint64_t desc_nmajor64(const void* tile) {
+  return smem_desc(tile, kBox64Bytes, 512, 2);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -236,18 +257,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // wgmma m64nNk16, bfloat16 in, float32 accumulators d (N / 2 a thread).
-// ss: A and B from shared memory (A K-major); rs: A from registers, in the
-// accumulator layout of a (64, 16) tile packed two bfloat16 a register.
-// TransB = 1 reads B N-major. scale_d = 0 overwrites d.
+// ss: A and B from shared memory; rs: A from registers, in the accumulator
+// layout of a (64, 16) tile packed two bfloat16 a register. TransB = 1 reads
+// B N-major; TransA = 1 reads a shared-memory A M-major (the transpose of a
+// K-major tile: its descriptor is an N-major one, a k16 step +2048 bytes),
+// else K-major. scale_d = 0 overwrites d.
 
-template <int TransB>
+template <int TransB, int TransA>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB),
+        "n"(TransA));
+}
+
+template <int TransB, int TransA>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -256,10 +294,36 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB),
+        "n"(TransA));
 }
 
-template <int TransB>
+template <int TransB, int TransA>
+__device__ __forceinline__ void wgmma_ss_n96(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, %52, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB),
+        "n"(TransA));
+}
+
+template <int TransB, int TransA>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -268,7 +332,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -285,10 +349,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB),
+        "n"(TransA));
 }
 
-template <int TransB>
+template <int TransB, int TransA>
 __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -301,7 +366,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a,
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -334,7 +399,8 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB),
+        "n"(TransA));
 }
 
 template <int TransB>
@@ -387,13 +453,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "n"(TransB));
 }
 
-template <int N, int TransB>
+template <int N, int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N");
-  if constexpr (N == 64) wgmma_ss_n64<TransB>(d, desc_a, desc_b, scale_d);
-  if constexpr (N == 128) wgmma_ss_n128<TransB>(d, desc_a, desc_b, scale_d);
-  if constexpr (N == 256) wgmma_ss_n256<TransB>(d, desc_a, desc_b, scale_d);
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 256, "wgmma_ss: N");
+  if constexpr (N == 32) wgmma_ss_n32<TransB, TransA>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<TransB, TransA>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 96) wgmma_ss_n96<TransB, TransA>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_ss_n128<TransB, TransA>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 256) wgmma_ss_n256<TransB, TransA>(d, desc_a, desc_b, scale_d);
 }
 
 template <int N, int TransB>

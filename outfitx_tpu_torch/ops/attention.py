@@ -16,14 +16,18 @@ raises; a CPU tensor goes to ``mha_reference`` and ``mha_bwd_reference``,
 the plain PyTorch versions of the same functions, which are also what the
 kernels are held against on the card.
 
-The bfloat16 forward at Dh a multiple of 16 works on tiles of 64 query rows
+In bfloat16 at Dh a multiple of 16 both kernels work on tiles of 64 rows
 of the flat (B H L, Dh) arrays, where each (b, h) slab is L consecutive
-rows; the C entry cuts a call into tiles from (L, Dh, dtype): up to L = 32
-(the set transformer), ``64 // L`` slabs packed into one tile, each row
-seeing only its own slab's keys, S summed in order over Dh on the CUDA cores
-as ``mha_reference`` sums it; above, one slab's query tiles against all of
-its keys at once, on the tensor cores. float32 (the correctness route) and
-bfloat16 at other Dh run the scalar kernels.
+rows; each C entry cuts a call into tiles from (L, Dh, dtype). The forward
+packs ``64 // L`` slabs into a tile up to L = 32 (the set transformer), each
+row seeing only its own slab's keys, S summed in order over Dh on the CUDA
+cores as ``mha_reference`` sums it; above, one slab's query tiles against
+all of its keys at once, on the tensor cores. The backward packs ``64 //
+L`` slabs a tile at every L <= 64 and repeats the plain version's float32
+arithmetic up to the roundings of P and dS (S and dP in order over Dh, the
+softmax's and the row sum's tree, ``_tree_sum``), then takes dV, dQ and dK
+on the tensor cores. float32 (the correctness route) and bfloat16 at other
+Dh run the scalar kernels.
 """
 
 from __future__ import annotations
@@ -60,6 +64,23 @@ def _scores(q, k):
     return s
 
 
+def _tree_sum(x):
+    """Sum over the last axis (at most 64 entries) in a fixed order of this
+    function's own, the tree of ``torch.softmax``'s warp sum on the card:
+    64 slots, zeros past the length; the upper 32 added onto the lower, then
+    the halves at 16, 8, 4, 2 and 1. Returns (..., 1). The backward kernel's
+    tiles sum rowsum(dP o P) so, and a bfloat16 dS that rounds on the sum's
+    last bit cannot flip with a library's choice of order."""
+    n = x.shape[-1]
+    if n > 64:
+        raise ValueError(f"_tree_sum takes at most 64 entries, got {n}")
+    x = torch.nn.functional.pad(x, (0, 64 - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x
+
+
 def _probs(q, k, pad_mask, causal: bool):
     """float32 softmax of the masked scores: operands widened exactly, S by
     ``_scores``, the masks where-set to -1e9 (so a fully masked row is
@@ -88,15 +109,20 @@ def mha_bwd_reference(q, k, v, pad_mask, g, causal: bool = False):
     with its roundings: P recomputed and kept in float32; dv = Pb^T g with
     Pb = P in the input dtype; dp = g v^T in float32; ds = P o (dp -
     rowsum(dp o P)); dsb = ds * scale in the input dtype before dq = dsb k
-    and dk = dsb^T q. Returns (dq, dk, dv) in the input dtype."""
+    and dk = dsb^T q. Returns (dq, dk, dv) in the input dtype.
+
+    dS rounds to bfloat16 before two products, so it is computed in orders
+    of this module's own, which the bfloat16 kernel repeats: dp summed over
+    Dh in order (``_scores``), the row sum of the rounded products dp o P
+    over ``_tree_sum``."""
     dt = q.dtype
     scale = 1.0 / (q.shape[-1] ** 0.5)
     p = _probs(q, k, pad_mask, causal)
     pb = p.to(dt).float()
     gf = g.float()
     dv = torch.matmul(pb.transpose(-1, -2), gf)
-    dp = torch.matmul(gf, v.float().transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dp = _scores(g, v)
+    ds = p * (dp - _tree_sum(dp * p))
     dsb = (ds * scale).to(dt).float()
     dq = torch.matmul(dsb, k.float())
     dk = torch.matmul(dsb.transpose(-1, -2), q.float())
@@ -209,8 +235,9 @@ def masked_mha(q, k, v, pad_mask, causal: bool = False):
     On the card the forward launches its CUDA kernel and adds one to
     ``masked_mha.launches``, the backward launches its own and adds one to
     ``masked_mha.bwd_launches``; on the CPU both run the plain versions.
-    The bfloat16 forward on the card wants finite inputs: its tiles multiply
-    P = 0 by neighbouring slabs' values, so an Inf there gives NaN here."""
+    The bfloat16 forward and backward on the card want finite inputs: their
+    tiles multiply P = 0 (and, backward, dS = 0) by neighbouring slabs'
+    values, so an Inf there gives NaN here."""
     return MaskedMHA.apply(q, k, v, pad_mask, causal)
 
 

@@ -7,7 +7,11 @@ within 2 ulps at O(1)). The CUDA kernels themselves are held against the
 same plain versions on the card by ``chip_smoke.py``. The bfloat16
 forward's tile walk (packed slabs up to L = 32, one slab's query tiles
 above) is emulated here in torch and held bit-equal to the plain version,
-and the launch is checked to hand the C entry what it plans from.
+and the launch is checked to hand the C entry what it plans from. So is the
+bfloat16 backward's walk (packed slabs at every L <= 64, block-diagonal P
+and dS tiles, the four products over 64 rows), held against the plain
+backward and the Pallas one, with the sum tree that its softmax and row sum
+share.
 """
 
 import numpy as np
@@ -455,3 +459,218 @@ def test_forward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype
         assert len(args) == 12
         assert args[5:11] == (7, 5, l, dh, 1, 1 if dtype == torch.bfloat16 else 0)
         assert args[11] == 0x7000 + q.get_device()
+
+
+# ---- the bfloat16 backward's tile walk -------------------------------------
+
+
+def _bwd_tile_plan(l):
+    """The C entry's plan for the backward (``csrc/masked_mha_bwd.cu``
+    ``dispatch_tiles``): ``64 // L`` slabs a tile, one from L = 33 on."""
+    return max(TILE_ROWS // l, 1)
+
+
+def _emulate_bwd_tiles(q, k, v, pad, g, causal):
+    """The bfloat16 backward kernel's walk (``masked_mha_bwd_tile_kernel``)
+    in float32 torch, tile by tile, with the C entry's plan. A tile is 64
+    rows of the flat arrays holding ``64 // L`` slabs (TMA's zeros past the
+    array). S and dP are taken over the whole tile; a key outside the row's
+    own slab is -inf, a pad or causal key of the slab -1e9 by the slab-local
+    index. Each row's softmax, and the row sum of dP o P over ``_tree_sum``,
+    run over its slab's L keys; P and dS * scale round to the input dtype
+    into block-diagonal (64, 64) tiles, and the four products run over all
+    64 rows: dP = G V^T, dV = Pb^T G, dQ = dSb K, dK = dSb^T Q. Rows of live
+    slabs are stored once; the rest stay NaN."""
+    b, h, l, dh = q.shape
+    dt = q.dtype
+    bh = b * h
+    n_slabs = _bwd_tile_plan(l)
+    fq, fk, fv, fg = (t.reshape(bh * l, dh) for t in (q, k, v, g))
+    outs = [torch.full(fq.shape, float("nan")) for _ in range(3)]
+    scale = 1.0 / (dh**0.5)
+    r = torch.arange(TILE_ROWS)[:, None]
+    c = torch.arange(TILE_ROWS)[None, :]
+    for tile in range(-(-bh // n_slabs)):
+        slab0 = tile * n_slabs
+        row0 = slab0 * l
+        qt, kt, vt, gt = (_box(t, row0, TILE_ROWS).float() for t in (fq, fk, fv, fg))
+        sl = r // l
+        slab = slab0 + sl
+        live = (sl < n_slabs) & (slab < bh)
+        lo, i_loc = sl * l, r - sl * l
+        j = c - lo  # the key's index in the row's slab
+        window = live & (j >= 0) & (j < l)
+        s = attention._scores(qt, kt) * scale
+        padded = pad[(slab // h).clamp(max=b - 1), j.clamp(0, l - 1)]
+        s = s.masked_fill(window & padded, -1e9)
+        if causal:
+            s = s.masked_fill(window & (j > i_loc), -1e9)
+        s = s.masked_fill(~window, float("-inf"))
+        dp = attention._scores(gt, vt)
+        p = torch.zeros(TILE_ROWS, TILE_ROWS)
+        ds = torch.zeros(TILE_ROWS, TILE_ROWS)
+        rows = live[:, 0]
+        for start in torch.unique(lo[rows]).tolist():
+            sel = rows & (lo[:, 0] == start)
+            keys = slice(start, start + l)
+            ps = torch.softmax(s[sel, keys], dim=-1)
+            dps = dp[sel, keys]
+            p[sel, keys] = ps
+            ds[sel, keys] = ps * (dps - attention._tree_sum(dps * ps))
+        assert torch.all(p[~window] == 0) and torch.all(ds[~window] == 0)
+        pb = p.to(dt).float()
+        dsb = (ds * scale).to(dt).float()
+        tile_out = (dsb @ kt, dsb.T @ qt, pb.T @ gt)  # dq, dk, dv
+        flat = row0 + torch.nonzero(rows)[:, 0]
+        for out, t in zip(outs, tile_out):
+            out[flat] = t[rows].to(dt).float()
+    return [o.reshape(q.shape) for o in outs]
+
+
+BWD_TILE_SHAPES = sorted({(b, h, l) for b, h, l, _ in TILE_CASES if l <= 64})
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b, h, l", BWD_TILE_SHAPES)
+def test_bwd_tile_walk_matches_reference_and_pallas(b, h, l, causal):
+    """float32: the walk against the plain backward and the Pallas backward
+    (interpret mode) at 1e-5; the products sum over 64 rows with zeros,
+    in another order than the plain version's L terms."""
+    q, k, v, pad = _inputs(b, h, l, 16, seed=200 + l)
+    g = _cotangent(q, seed=l)
+    tq, tk, tv, tpad, tg = _torch(q, k, v, pad, g)
+    got = _emulate_bwd_tiles(tq, tk, tv, tpad, tg, causal)
+    want = mha_bwd_reference(tq, tk, tv, tpad, tg, causal)
+    pallas = _mha_bwd_pallas_impl(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(pad), jnp.asarray(g), causal
+    )
+    m = _kept_key0_masked(pad, q.shape)
+    for name, a, w, p in zip(("dq", "dk", "dv"), got, want, pallas):
+        assert torch.isfinite(a).all(), name  # every row stored once
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0, atol=TOL, err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(p), rtol=0, atol=TOL, err_msg=name)
+        if name != "dq":
+            assert np.all(a.numpy()[m] == 0), name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b, h, l", [(7, 5, 17), (2, 7, 13), (3, 3, 32), (2, 3, 64)])
+def test_bwd_tile_walk_in_bfloat16_rounds_like_the_reference(b, h, l, causal):
+    """bfloat16: the walk rounds P and dS where the plain backward does, so
+    only the products' sum order differs: within 2 bf16 ulps at O(1)."""
+    q, k, v, pad = _inputs(b, h, l, 16, seed=300 + l)
+    g = _cotangent(q, seed=l + 1)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    tpad = torch.from_numpy(pad)
+    got = _emulate_bwd_tiles(tq, tk, tv, tpad, tg, causal)
+    want = mha_bwd_reference(tq, tk, tv, tpad, tg, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(
+            a.numpy(), w.float().numpy(), rtol=2.0**-7, atol=2.0**-7, err_msg=name
+        )
+
+
+def _tree_64(x):
+    """The backward kernel's softmax and row-sum tree, as float32 torch ops:
+    64 slots (zeros past the length), the upper 32 onto the lower, then the
+    halves at 16, 8, 4, 2, 1."""
+    t = torch.nn.functional.pad(x, (0, 64 - x.shape[-1]))
+    t = t[..., :32] + t[..., 32:]
+    for o in (16, 8, 4, 2, 1):
+        t = t[..., :o] + t[..., o : 2 * o]
+    return t[..., 0]
+
+
+def _tree_32(x):
+    """The forward's packed kernel's tree (``masked_mha_fwd.cu``, L <= 32):
+    32 slots, t[j] = e[j] + e[j + 16], then 8, 4, 2, 1."""
+    t = torch.nn.functional.pad(x, (0, 32 - x.shape[-1]))
+    for o in (16, 8, 4, 2, 1):
+        t = t[..., :o] + t[..., o : 2 * o]
+    return t[..., 0]
+
+
+def _quad_tree(x):
+    """The same tree as the backward kernel's ``quad_tree_sum`` takes it:
+    thread q of a quad holds slot 16 a + 4 q + i at x_q[4 a + i]; the steps
+    at 32 and 16 run in a thread, 8 and 4 against the partner q ^ 2 and
+    q ^ 1, 2 and 1 in thread 0."""
+    slots = 32 if x.shape[-1] <= 32 else 64
+    xs = torch.nn.functional.pad(x, (0, slots - x.shape[-1]))
+    held = [
+        [xs[..., 16 * a + 4 * q + i] for a in range(slots // 16) for i in range(4)]
+        for q in range(4)
+    ]
+    t = []
+    for q in range(4):
+        xq = held[q]
+        if slots == 64:
+            t.append([(xq[i] + xq[8 + i]) + (xq[4 + i] + xq[12 + i]) for i in range(4)])
+        else:
+            t.append([xq[i] + xq[4 + i] for i in range(4)])
+    for o in (2, 1):
+        t = [[t[q][i] + t[q ^ o][i] for i in range(4)] for q in range(4)]
+    return (t[0][0] + t[0][2]) + (t[0][1] + t[0][3])
+
+
+def _softmax_terms(l, seed):
+    """exp(s - max) of 4096 rows of l scores, float32 in (0, 1]."""
+    s = torch.from_numpy(np.random.default_rng(seed).standard_normal((4096, l)) * 4)
+    s = s.float()
+    return torch.exp(s - s.max(dim=-1, keepdim=True).values)
+
+
+@pytest.mark.parametrize("l", range(1, 33))
+def test_64_slot_tree_sums_as_the_32_slot_tree(l):
+    """Up to 32 keys the upper 32 slots are exact zeros, so the backward's
+    64-slot tree gives the forward's 32-slot sums bit for bit. (The CPU's
+    torch.softmax sums in another order than the card's warp softmax, so
+    the tree is held against torch.softmax itself only on the card.)"""
+    e = _softmax_terms(l, seed=l)
+    assert torch.equal(_tree_64(e), _tree_32(e))
+
+
+@pytest.mark.parametrize("l", [1, 5, 16, 17, 31, 32, 33, 40, 63, 64])
+def test_quad_split_and_plain_version_take_the_64_slot_tree(l):
+    """The kernel's four-thread split adds the same operands in the same
+    tree, and the plain backward's ``_tree_sum`` is that tree: all equal
+    bit for bit, on softmax terms and on signed products dP o P."""
+    e = _softmax_terms(l, seed=100 + l)
+    x = e * torch.from_numpy(np.random.default_rng(l).standard_normal(e.shape)).float()
+    for terms in (e, x):
+        want = _tree_64(terms)
+        assert torch.equal(_quad_tree(terms), want)
+        assert torch.equal(attention._tree_sum(terms)[..., 0], want)
+
+
+@pytest.mark.parametrize(
+    "l, dh, dtype",
+    [
+        (17, 96, torch.bfloat16), (9, 16, torch.bfloat16), (1, 16, torch.bfloat16),
+        (32, 32, torch.bfloat16), (33, 48, torch.bfloat16), (64, 128, torch.bfloat16),
+        (17, 96, torch.float32), (64, 8, torch.float32), (17, 24, torch.bfloat16),
+    ],
+)
+def test_backward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype):
+    """On every route (the tile kernel for bfloat16 at Dh % 16 == 0, the
+    scalar kernel else) the C entry receives the same 15 arguments: the
+    seven tensors, the shape, the causal flag, the dtype code and the
+    current stream's handle, once per call; it plans the tiles itself."""
+    entry = _FakeEntry()
+    lib = type("Lib", (), {"masked_mha_bwd": entry})()
+    monkeypatch.setattr(attention._build, "load", lambda name: lib)
+    monkeypatch.setattr(
+        torch._C, "_cuda_getCurrentRawStream", lambda index: 0x7000 + index, raising=False
+    )
+    q = torch.zeros((7, 5, l, dh), dtype=dtype)
+    pad = torch.zeros(7, l, dtype=torch.bool)
+    before = masked_mha.bwd_launches
+    for causal in (False, True):
+        dq, dk, dv = _masked_mha_bwd_cuda(q, q.clone(), q.clone(), pad, q.clone(), causal)
+        assert dq.shape == dk.shape == dv.shape == q.shape and dq.dtype == dtype
+    assert masked_mha.bwd_launches == before + 2
+    assert entry.argtypes_sets == 1 and len(entry.argtypes) == 15
+    for causal, args in zip((0, 1), entry.calls):
+        assert len(args) == 15
+        assert args[8:14] == (7, 5, l, dh, causal, 1 if dtype == torch.bfloat16 else 0)
+        assert args[14] == 0x7000 + q.get_device()
