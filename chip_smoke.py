@@ -24,7 +24,11 @@ Phases, each printing one JSON line:
             at B=2047; mlp_fused at 131072 and 401408 (vision) x768x3072 and
             at 130,001 rows; layernorm at 136, 69,632 and 401,408 rows,
             ragged widths, constant and 1e4 rows, and its closed-form
-            backward against autograd); the stream a wrapper hands its
+            backward against autograd; the attention forward at MiniLM's
+            (64,12,64,32) with tail-padded keys and at (4096,16,17,8), the
+            set transformer over resnet_sbert embeddings on the bfloat16
+            scalar route, causal and not; layernorm at MiniLM's 131,072 x
+            384 rows with eps 1e-12); the stream a wrapper hands its
             kernel is PyTorch's current one;
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
@@ -33,7 +37,11 @@ Phases, each printing one JSON line:
             and the answers are held against the same engine on the CPU in
             float32; then an engine with ``attn="block"`` answers the CP
             requests through the fused attention block (6 launches a
-            forward) within the CPU tolerance of the default engine;
+            forward) within the CPU tolerance of the default engine; then
+            an int8 engine (``quantize_model=True``, the W8A8 forward) on
+            the same catalog: CP within 0.05 of the bfloat16 engine, CIR
+            top-10 overlap of 7 in 10 on average, FITB in range, 6
+            attention and 12 LayerNorm launches a forward;
 5. train    (a) one CP train step at full width (B=64, A=2, bf16) against
             the same step on the CPU in float32 from the same weights;
             (b) ``CPTrainer`` at the reference envelope (B=3072, A=4,
@@ -53,6 +61,12 @@ Phases, each printing one JSON line:
             fused MLP in both towers against the first pass; one small batch
             of the CLIP pair (L=50 and causal L=77); items/s, seconds per
             batch, peak memory and a profile of one batch by kernel kind;
+            then the resnet_sbert encoder at full width (ResNet-18 at 224
+            x 224, MiniLM 6 x 384 at T=64): 4,096 items at batch 2048 with
+            exact launch counts (6 attention and 13 LayerNorm a MiniLM
+            pass), 32 items against the CPU in float32, items/s and peak
+            memory, and the set transformer at d_embed 128 (Dh=8) scoring
+            outfits drawn from those embeddings against the CPU;
 7. http     ``serve()`` at full width in a thread, spare rows and the three
             coalescers on: concurrent clients on /api/cp, /api/cir,
             /api/similar, /api/fitb and /api/cp_batch against the engine's
@@ -73,7 +87,13 @@ Phases, each printing one JSON line:
             mlp_fused read through L2 per launch, beside the earlier
             one-block design's); the CP forward's outfits/s at B=4096, the
             cp_score latency, and the host microseconds per call of the
-            layernorm wrapper and of F.layer_norm at the serving bucket.
+            layernorm wrapper and of F.layer_norm at the serving bucket;
+            the int8 route beside the bfloat16 one (CP forward at B=4096
+            with its device time split into the int8 products, the
+            quantize and dequantize passes, attention and LayerNorm; its
+            cp_score p50/p99) and ``torch._int_mm`` against ``torch.matmul``
+            in bfloat16 at (69632, 1536) x (1536, 4608); attention also at
+            MiniLM's (2048,12,64,32) and at Dh=8, layernorm at 384.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -85,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from collections import Counter
 import math
 import pathlib
 import shutil
@@ -152,12 +173,24 @@ FWD_TILE_SHAPES = [
     ((4096, 16, 9, 96), False), ((4096, 16, 9, 96), True),
     ((4096, 16, 13, 96), False), ((4096, 16, 13, 96), True),
 ]
+# The forward at the shapes the int8 forward's and resnet_sbert's paths
+# give it: MiniLM (T=64, Dh=32) with keys padded at each row's tail as the
+# tokenizer pads them, and the set transformer over resnet_sbert embeddings
+# (d_embed 128, 16 heads: Dh=8, bfloat16 on the scalar route), causal and
+# not. (shape, causal, tail-padded keys).
+SLICE8_MHA_SHAPES = [
+    ((64, 12, 64, 32), False, True),
+    ((4096, 16, 17, 8), False, False), ((4096, 16, 17, 8), True, False),
+]
 # The forward's timing rows at the towers' lengths, batch 2048: SigLIP
-# ViT-B/16, CLIP ViT-B/32, CLIP text (causal).
+# ViT-B/16, CLIP ViT-B/32, CLIP text (causal), MiniLM; and the set
+# transformer over resnet_sbert embeddings at B=4096.
 TOWER_MHA_TIMING = [
     ("vision_tower", (2048, 12, 196, 64), False),
     ("clip_vision_tower", (2048, 12, 50, 64), False),
     ("clip_text_tower", (2048, 8, 77, 64), True),
+    ("minilm_text_tower", (2048, 12, 64, 32), False),
+    ("resnet_sbert_set_transformer", (4096, 16, 17, 8), False),
 ]
 # Host time of one layernorm launch at the serving bucket, by the host clock
 # over this many calls with one synchronisation at the end, in this many
@@ -185,17 +218,20 @@ MLP_SHAPES = [
 # layernorm ((rows..., d), eps): the serving bucket's and the B=4096 set
 # transformer's rows, the vision tower's rows with SigLIP's eps, a narrow
 # width, widths that are no multiple of the vector width (the scalar kernel,
-# in bfloat16 also d=100), a 3-D input, and a d above the register kernel's.
+# in bfloat16 also d=100), a 3-D input, a d above the register kernel's,
+# and MiniLM's rows at batch 2048 (d=384, BERT's eps).
 LAYERNORM_SHAPES = [
     ((136, 1536), 1e-5), ((69632, 1536), 1e-5), ((401408, 768), 1e-6),
     ((1000, 96), 1e-5), ((257, 100), 1e-5), ((33, 1531), 1e-5),
-    ((8, 17, 1536), 1e-5), ((5, 4096), 1e-5),
+    ((8, 17, 1536), 1e-5), ((5, 4096), 1e-5), ((131072, 384), 1e-12),
 ]
 # The bound shapes of the timing phase: B=4096 and B=3072 set-transformer
-# rows, the vision and the text tower's rows at batch 2048.
+# rows, the vision and the text tower's rows at batch 2048, MiniLM's rows.
 LAYERNORM_TIMING_SHAPES = [
     (69632, 1536), (52224, 1536), (401408, 768), (131072, 768), (136, 1536),
+    (131072, 384),
 ]
+LAYERNORM_EPS = {1536: 1e-5, 768: 1e-6, 384: 1e-12}
 KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"]
 # Precompute: the JAX CLI's default synthetic catalog and PrecomputeConfig's
 # batch; the fused-MLP pass and the CLIP pair run one smaller sweep each.
@@ -234,6 +270,16 @@ RETRIEVAL_ITEMS = 300_000
 RETRIEVAL_QUERIES = 8
 RETRIEVAL_UPDATE_ROWS = 1500
 INT8_OVERLAP_MIN = 0.9
+# The int8 (W8A8) engine against the bfloat16 one at full width: the JAX
+# package's own engine bars (CP within 0.05, CIR top-10 overlap of 7 of 10).
+INT8_CP_TOL = 0.05
+INT8_CIR_OVERLAP_MIN = 7.0
+# torch._int_mm against a bfloat16 product at the B=4096 forward's QKV shape.
+INT_MM_SHAPE = (69632, 1536, 4608)
+INT8_OPS_PER_S = 1979e12
+# The resnet_sbert precompute sweep, and the set transformer over its
+# embeddings (d_embed 128) scoring this many outfits.
+RESNET_SBERT_OUTFITS = 512
 
 # Training: the reference envelope (CP: B=3072 per microbatch, A=4) for 3
 # optimizer steps; CIR at its default B=512, A=1 for 2 steps.
@@ -290,6 +336,7 @@ KERNEL_KINDS = (
     ("attn_block", ("attn_block", "AttnQkvEpi", "attn_core_kernel", "AttnOutEpi")),
     ("mlp_fused", ("mlp_fused", "MlpMidEpi", "MlpOutEpi")),
     ("layernorm", ("layernorm_",)),
+    ("int8_matmul", ("gemm_s8", "i16832gemm", "imma", "s8s8")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("random", ("distribution", "philox", "random")),
     ("reduce", ("reduce_kernel",)),
@@ -361,6 +408,22 @@ def attention_inputs(shape, dtype, seed: int):
         pad[1] = True
         pad[1, 0] = False  # only key 0 kept, as the JAX batch padding does
         pad[2, 1:] = True
+    return q, k, v, pad
+
+
+def tail_padded_attention_inputs(shape, dtype, seed: int):
+    """q, k, v ~ N(0, 1) and keys padded at the tail of each row, as a
+    tokenizer pads a text: lengths drawn from 1..L, row 0 unpadded, row 1
+    one real token."""
+    b, h, l, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for _ in range(3)
+    )
+    lengths = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    lengths[0], lengths[1] = l, 1
+    pad = torch.arange(l, device="cuda")[None, :] >= lengths[:, None]
     return q, k, v, pad
 
 
@@ -605,13 +668,17 @@ def _tower_kernel_checks():
     from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
 
     mha_cases, block_cases, mlp_cases = [], [], []
-    for si, (shape, causal) in enumerate(TOWER_MHA_SHAPES + FWD_TILE_SHAPES):
+    shapes = [(shape, causal, False) for shape, causal in TOWER_MHA_SHAPES + FWD_TILE_SHAPES]
+    for si, (shape, causal, tail) in enumerate(shapes + SLICE8_MHA_SHAPES):
+        inputs = tail_padded_attention_inputs if tail else attention_inputs
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, pad = attention_inputs(shape, dtype, seed=20 + si)
+            q, k, v, pad = inputs(shape, dtype, seed=20 + si)
             got = _masked_mha_cuda(q, k, v, pad, causal)
             ref = mha_reference(q, k, v, pad, causal)
             torch.cuda.synchronize()
             tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
+            if tail:
+                tag["tail_padded_keys"] = True
             check(bool(torch.isfinite(got.float()).all()),
                   f"non-finite masked_mha_fwd output at {tag}")
             err, ok = _compare(got, ref, dtype)
@@ -923,6 +990,59 @@ def _block_route(cfg, reqs, cp_want):
             "cp_prob_max_abs_err_vs_mha_route": err}
 
 
+def _int8_route(cfg, reqs, got):
+    """An engine with ``quantize_model=True`` (the int8 W8A8 forward) at full
+    width on the same synthetic catalog: its answers against the bfloat16
+    engine's (``got``), and exactly 6 ``masked_mha_fwd`` and 12
+    ``layernorm`` launches a forward."""
+    from outfitx_tpu_torch.models.quantized import QuantizedOutfitX
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.serve.app import build_engine
+
+    t0 = time.perf_counter()
+    engine = build_engine(synthetic=True, model_cfg=cfg, device="cuda", quantize_model=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(isinstance(engine.cp_model, QuantizedOutfitX) and engine.cir_model is engine.cp_model,
+          "the int8 engine does not serve one shared QuantizedOutfitX")
+    engine.pools.pools.pop(0)  # the same routes as the bfloat16 engine
+    torch.cuda.synchronize()
+    masked_mha.launches = layer_norm.launches = 0
+    q8 = _serve(engine, reqs)
+    torch.cuda.synchronize()
+    launches, ln_launches = masked_mha.launches, layer_norm.launches
+    forwards = _expected_forwards(engine, reqs)
+    n_layers = cfg.transformer.n_layers
+    check(launches == n_layers * forwards and ln_launches == _ln_per_forward(cfg) * forwards,
+          f"int8 route: {launches} masked_mha_fwd and {ln_launches} layernorm launches "
+          f"for {forwards} forwards")
+    cp_q8 = np.asarray(q8["cp"] + list(q8["cp_batch"]))
+    cp_bf16 = np.asarray(got["cp"] + list(got["cp_batch"]))
+    check(bool(np.isfinite(cp_q8).all()), "non-finite int8 CP score")
+    cp_err = float(np.abs(cp_q8 - cp_bf16).max())
+    check(cp_err <= INT8_CP_TOL, f"int8 CP probability off the bfloat16 engine's by {cp_err}")
+    cir_q8, cir_bf16 = q8["cir"] + q8["cir_batch"], got["cir"] + got["cir_batch"]
+    check(all(len(r) == 10 for r in cir_q8), "int8 CIR answer without 10 items")
+    # Pools repeat items, so a top-10 can hold an item more than once: the
+    # overlap counts items with their multiplicity (identical lists give 10).
+    overlap = float(np.mean([
+        sum((Counter(x["item_id"] for x in a) & Counter(x["item_id"] for x in b)).values())
+        for a, b in zip(cir_q8, cir_bf16)
+    ]))
+    check(overlap >= INT8_CIR_OVERLAP_MIN, f"int8 CIR top-10 overlap {overlap} of 10")
+    n_cands = [len(c) for _, c in reqs[4]]
+    check(all(0 <= p < n for p, n in zip(q8["fitb"], n_cands)), "int8 FITB pick out of range")
+    fitb = float(np.mean(np.asarray(q8["fitb"]) == np.asarray(got["fitb"])))
+    check(q8["sim"] == got["sim"], "similar items differ: they take no model")
+    return engine, {
+        "engine_build_s": build_s, "forwards": forwards,
+        "masked_mha_launches": launches, "layernorm_launches": ln_launches,
+        "cp_prob_max_abs_err_vs_bf16": cp_err, "cir_top10_overlap_vs_bf16": overlap,
+        "fitb_agree_with_bf16": fitb,
+    }
+
+
 def phase_serve():
     from outfitx_tpu_torch.core.config import OutfitXConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
@@ -993,6 +1113,7 @@ def phase_serve():
     ]))
     check(overlap >= SIM_OVERLAP_MIN, f"similar items overlap {overlap}")
     block = _block_route(cfg, reqs, got["cp"] + list(got["cp_batch"]))
+    q8_engine, int8 = _int8_route(cfg, reqs, got)
 
     emit({
         "phase": "serve",
@@ -1007,9 +1128,14 @@ def phase_serve():
         "cir_top1_agree": top1, "cir_top1_worst_rel_gap": worst_gap,
         "fitb_agree": fitb, "similar_overlap": overlap,
         "attn_block_route": block,
+        "int8_route": int8,
     })
-    return gpu, {"masked_mha_fwd": launches, "layernorm": ln_launches,
-                 "attn_block": block["attn_block_launches"]}
+    return gpu, q8_engine, {
+        "serve": {"masked_mha_fwd": launches, "layernorm": ln_launches,
+                  "attn_block": block["attn_block_launches"]},
+        "serve_int8": {"masked_mha_fwd": int8["masked_mha_launches"],
+                       "layernorm": int8["layernorm_launches"]},
+    }
 
 
 def _cp_step_grads(model, catalog, split, device):
@@ -1385,6 +1511,95 @@ def _cpu_embeddings(runner, n_items):
     return cpu_runner.encode_batch(next(cpu_runner._batches()))
 
 
+def _resnet_sbert_outfits(emb, seed: int):
+    """RESNET_SBERT_OUTFITS outfits of 2..16 items drawn from the sweep's
+    embeddings: (B, 16, 128) float32 and the (B, 16) pad mask."""
+    rng = np.random.default_rng(seed)
+    b, l = RESNET_SBERT_OUTFITS, 16
+    rows = rng.integers(0, emb.shape[0], (b, l))
+    lengths = rng.integers(2, l + 1, b)
+    mask = np.arange(l)[None, :] >= lengths[:, None]
+    x = emb[rows].astype(np.float32)
+    x[mask] = 0.0
+    return x, mask
+
+
+def _resnet_sbert(cfg, root):
+    """The resnet_sbert item encoder at full width (ResNet-18 at 224 x 224,
+    MiniLM 6 x 384 at T=64): a sweep of PRECOMPUTE_ITEMS items with exact
+    launch counts (6 masked_mha_fwd and 13 layernorm a MiniLM pass), 32
+    items against the CPU in float32, one batch timed; then the set
+    transformer at d_embed 128 (16 heads of Dh=8, the bfloat16 scalar
+    attention route) scoring outfits drawn from those embeddings, card
+    bfloat16 against CPU float32."""
+    from outfitx_tpu_torch.core.config import ItemEncoderConfig, OutfitXConfig
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+
+    model_cfg = OutfitXConfig(item_encoder=dataclasses.replace(
+        ItemEncoderConfig.for_type("resnet_sbert"), text_model_name=""
+    ))
+    n_batches = -(-PRECOMPUTE_ITEMS // cfg.batch_size)
+    result, runner, emb, counts, peak = _sweep(
+        cfg, model_cfg, root / "resnet_sbert", PRECOMPUTE_ITEMS,
+        {"masked_mha_fwd": 6 * n_batches, "attn_block": 0, "mlp_fused": 0},
+    )
+    vc, tc = runner.encoder.vision.cfg, runner.encoder.text.cfg
+    check((vc.image_size, vc.stage_channels, tc.d_model, tc.n_heads, tc.n_layers,
+           tc.d_mlp, tc.vocab_size, tc.ln_eps)
+          == (224, (64, 128, 256, 512), 384, 12, 6, 1536, 30522, 1e-12),
+          f"resnet_sbert towers are not ResNet-18 and MiniLM-L6: {vc} {tc}")
+    check(counts["layernorm"] == 13 * n_batches, f"MiniLM LayerNorms {counts}")
+    t0 = time.perf_counter()
+    cos = _half_cosines(emb[:CPU_CHECK_ITEMS], _cpu_embeddings(runner, CPU_CHECK_ITEMS))
+    cpu_s = time.perf_counter() - t0
+    check(min(cos.values()) >= PRECOMPUTE_COS_MIN,
+          f"resnet_sbert card embeddings against the CPU's: cosines {cos}")
+    batch = next(runner._batches())
+    runner.encode_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.encode_batch(batch)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    profile = profile_call(lambda: runner.encode_batch(batch), top=8)
+    del runner
+
+    # The set transformer over these embeddings: Dh = 128 / 16 = 8.
+    gpu = OutfitXModel(model_cfg, device="cuda", seed=0)
+    cpu = OutfitXModel(dataclasses.replace(model_cfg, compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    x, mask = _resnet_sbert_outfits(emb, seed=5)
+    with torch.inference_mode():
+        _reset_tower_counts()
+        got = torch.sigmoid(gpu.cp_forward(
+            torch.from_numpy(x).cuda(), torch.from_numpy(mask).cuda()
+        )).cpu().numpy()
+        torch.cuda.synchronize()
+        scorer_counts = _tower_counts()
+        want = torch.sigmoid(cpu.cp_forward(torch.from_numpy(x), torch.from_numpy(mask))).numpy()
+    check(model_cfg.d_embed == 128 and model_cfg.d_embed // model_cfg.transformer.n_heads == 8,
+          "the set transformer over resnet_sbert is not at Dh=8")
+    check(scorer_counts["masked_mha_fwd"] == 6 and scorer_counts["layernorm"] == 12,
+          f"resnet_sbert CP forward launches {scorer_counts}")
+    check(bool(np.isfinite(got).all()), "non-finite resnet_sbert CP score")
+    cp_err = float(np.abs(got - want).max())
+    check(cp_err <= CP_PROB_TOL, f"resnet_sbert CP probability off by {cp_err}")
+    launches = {k: counts[k] + scorer_counts[k] for k in ("masked_mha_fwd", "layernorm")}
+    return {
+        "vision": "ResNet-18 at 224x224", "text": "MiniLM, T=64, d=384, 6 layers, vocab 30522",
+        "items": result["items"], "batch": cfg.batch_size, "shards": result["shards"],
+        "sweep_s": result["seconds"], "sweep_items_per_s": result["items_per_sec"],
+        "launches": counts, "peak_memory_bytes": peak,
+        "batch_s": batch_s, "batch_items_per_s": cfg.batch_size / batch_s,
+        "cpu_check_items": CPU_CHECK_ITEMS, "cpu_check_s": cpu_s,
+        "min_cosine_vs_cpu_f32": cos, "batch_profile": profile,
+        "set_transformer": {
+            "d_embed": model_cfg.d_embed, "head_dim": 8, "outfits": len(x),
+            "launches": scorer_counts, "cp_prob_max_abs_err_vs_cpu_f32": cp_err,
+        },
+    }, launches
+
+
 def phase_precompute():
     from outfitx_tpu_torch.core.config import (
         ItemEncoderConfig,
@@ -1474,6 +1689,8 @@ def phase_precompute():
     check(min(cos_clip.values()) >= PRECOMPUTE_COS_MIN,
           f"CLIP card embeddings against the CPU's: cosines {cos_clip}")
 
+    resnet_sbert, resnet_launches = _resnet_sbert(cfg, root)
+
     batch_s = float(np.mean(times))
     emit({
         "phase": "precompute",
@@ -1498,14 +1715,18 @@ def phase_precompute():
             "min_cosine_vs_cpu_f32": cos_clip,
         },
         "batch_profile": profile,
+        "resnet_sbert": resnet_sbert,
     })
     return {
-        "masked_mha_fwd": counts["masked_mha_fwd"] + fused_counts["masked_mha_fwd"]
-        + clip_counts["masked_mha_fwd"],
-        "attn_block": counts["attn_block"] + fused_counts["attn_block"],
-        "mlp_fused": fused_counts["mlp_fused"],
-        "layernorm": counts["layernorm"] + fused_counts["layernorm"]
-        + clip_counts["layernorm"],
+        "precompute": {
+            "masked_mha_fwd": counts["masked_mha_fwd"] + fused_counts["masked_mha_fwd"]
+            + clip_counts["masked_mha_fwd"],
+            "attn_block": counts["attn_block"] + fused_counts["attn_block"],
+            "mlp_fused": fused_counts["mlp_fused"],
+            "layernorm": counts["layernorm"] + fused_counts["layernorm"]
+            + clip_counts["layernorm"],
+        },
+        "precompute_resnet_sbert": resnet_launches,
     }
 
 
@@ -2070,7 +2291,7 @@ def _layernorm_timing():
     dt = torch.bfloat16
     out = {}
     for shape in LAYERNORM_TIMING_SHAPES:
-        eps = 1e-6 if shape[1] == 768 else 1e-5
+        eps = LAYERNORM_EPS[shape[1]]
         x, weight, bias = layernorm_inputs(shape, dt, seed=14)
         w16, b16 = weight.to(dt), bias.to(dt)
         iters = 200 if shape[0] <= 1024 else 20
@@ -2131,7 +2352,62 @@ def _layernorm_host_time():
     }
 
 
-def phase_timing(engine):
+def _int_mm_timing():
+    """``torch._int_mm`` at INT_MM_SHAPE with the weight as the int8 forward
+    keeps it ((N, K), passed transposed) and as a contiguous (K, N), beside
+    ``torch.matmul`` in bfloat16 on the same shape, and the int8 bound."""
+    m, k, n = INT_MM_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    w_kn = w.t().contiguous()
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    nbytes = m * k + k * n + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+    out = {
+        "shape": list(INT_MM_SHAPE),
+        "int_mm_ms": cuda_ms(lambda: torch._int_mm(x, w.t()), 20),
+        "int_mm_kn_contiguous_ms": cuda_ms(lambda: torch._int_mm(x, w_kn), 10),
+        "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(xb, wb.t()), 20),
+        "int8_bound_ms": max(t_bytes, t_ops),
+        "int8_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    del x, w, w_kn, xb, wb
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_score_latency(engine):
+    """cp_score p50/p99 (ms, host clock) over 50 calls after 10 warm ones."""
+    outfit = [int(i) for i in engine.catalog.item_ids[:4]]
+    lat = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        engine.cp_score(outfit)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(lat[10:])
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99)), int(lat.size)
+
+
+def _profile_split(profile):
+    """A forward's device time by part: the int8 and the bfloat16 products,
+    attention, LayerNorm, and the rest (the quantize and dequantize passes,
+    bias and residual adds, activations, casts and copies)."""
+    kinds = {k: v["device_ms"] for k, v in profile["by_kind"].items()}
+    named = ("int8_matmul", "matmul", "masked_mha_fwd", "layernorm")
+    return {
+        "int8_products_ms": kinds.get("int8_matmul", 0.0),
+        "bf16_products_ms": kinds.get("matmul", 0.0),
+        "attention_ms": kinds.get("masked_mha_fwd", 0.0),
+        "layernorm_ms": kinds.get("layernorm", 0.0),
+        "quantize_dequantize_and_other_passes_ms": sum(
+            v for k, v in kinds.items() if k not in named
+        ),
+    }
+
+
+def phase_timing(engine, q8_engine):
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
     per_shape = {}
@@ -2160,18 +2436,17 @@ def phase_timing(engine):
     emb = torch.randn((b, l, d), generator=gen, device="cuda").to(torch.bfloat16)
     lengths = torch.randint(2, l + 1, (b,), generator=gen, device="cuda")
     mask = torch.arange(l, device="cuda")[None, :] >= lengths[:, None]
-    model = engine.cp_model
+    model, q8_model = engine.cp_model, q8_engine.cp_model
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model.cp_forward(emb, mask), iters=5, warmup=2)
         profile = profile_call(lambda: model.cp_forward(emb, mask))
-
-    outfit = [int(i) for i in engine.catalog.item_ids[:4]]
-    lat = []
-    for _ in range(60):
-        t0 = time.perf_counter()
-        engine.cp_score(outfit)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    lat = np.asarray(lat[10:])
+        q8_ms = cuda_ms(lambda: q8_model.cp_forward(emb, mask), iters=5, warmup=2)
+        q8_profile = profile_call(lambda: q8_model.cp_forward(emb, mask), top=12)
+    del emb
+    torch.cuda.empty_cache()
+    p50, p99, n_lat = _cp_score_latency(engine)
+    q8_p50, q8_p99, _ = _cp_score_latency(q8_engine)
+    int_mm = _int_mm_timing()
     towers = _tower_timing()
     layernorm = _layernorm_timing()
     host = _layernorm_host_time()
@@ -2187,9 +2462,19 @@ def phase_timing(engine):
             cfg.transformer.n_layers * per_shape[4096]["ms"] / fwd_ms
         ),
         "cp_forward_b4096_profile": profile,
-        "cp_score_p50_ms": float(np.percentile(lat, 50)),
-        "cp_score_p99_ms": float(np.percentile(lat, 99)),
-        "cp_score_samples": int(lat.size),
+        "cp_forward_b4096_split": _profile_split(profile),
+        "cp_score_p50_ms": p50,
+        "cp_score_p99_ms": p99,
+        "cp_score_samples": n_lat,
+        "int8": {
+            "cp_forward_b4096_ms": q8_ms,
+            "cp_forward_outfits_per_s": b / (q8_ms / 1e3),
+            "cp_forward_b4096_split": _profile_split(q8_profile),
+            "cp_forward_b4096_profile": q8_profile,
+            "cp_score_p50_ms": q8_p50,
+            "cp_score_p99_ms": q8_p99,
+            "int_mm_vs_bf16_matmul": int_mm,
+        },
         "layernorm_host_us_per_call": host,
     })
     return per_shape, bwd, towers, layernorm, host
@@ -2209,18 +2494,21 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     max_err = phase_kernels()
-    engine, serve_launches = phase_serve()
+    engine, q8_engine, serve_launches = phase_serve()
     train_launches = phase_train()
     precompute_launches = phase_precompute()
     http_launches = phase_http()
     phase_retrieval()
-    fwd, bwd, towers, layernorm, host = phase_timing(engine)
+    fwd, bwd, towers, layernorm, host = phase_timing(engine, q8_engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
             "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
             "at_vision_tower": towers["masked_mha_fwd_vision_tower"],
             "at_clip_vision_tower": towers["masked_mha_fwd_clip_vision_tower"],
             "at_clip_text_tower": towers["masked_mha_fwd_clip_text_tower"],
+            "at_minilm_text_tower": towers["masked_mha_fwd_minilm_text_tower"],
+            "at_resnet_sbert_set_transformer":
+                towers["masked_mha_fwd_resnet_sbert_set_transformer"],
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
             "at_b8": bwd[8],
@@ -2233,12 +2521,13 @@ def main() -> int:
             "at_b4096": layernorm["69632x1536"], "at_b3072": layernorm["52224x1536"],
             "at_vision_tower": layernorm["401408x768"],
             "at_text_tower": layernorm["131072x768"],
+            "at_minilm_text_tower": layernorm["131072x384"],
             "host_us_per_call_at_serving_bucket": host,
         }),
     ]
     by_path = {
-        "serve": serve_launches, "train": train_launches,
-        "precompute": precompute_launches, "http": http_launches,
+        **serve_launches, "train": train_launches, **precompute_launches,
+        "http": http_launches,
     }
     for name, *_ in rows:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()

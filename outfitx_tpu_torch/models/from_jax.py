@@ -10,7 +10,10 @@ leaf's shape and dtype) with numpy alone. ``jax_params_from_state_dict``
 is the inverse of ``state_dict_from_jax``: the port's checkpoints store
 parameters in the JAX tree layout (``train/checkpoint.py``).
 ``item_encoder_state_dict_from_jax`` maps the item encoder's tower trees
-(clip and siglip) onto ``ItemEncoderModel``'s state dict.
+(clip, siglip, and resnet_sbert's ResNet-18 and MiniLM) onto
+``ItemEncoderModel``'s state dict. ``quantized_state_dict_from_jax`` maps
+the JAX int8 serving tree (``quantize_outfitx_params``) onto
+``QuantizedOutfitX``'s buffers.
 """
 
 from __future__ import annotations
@@ -23,10 +26,7 @@ import numpy as np
 import torch
 
 
-def _f32(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.detach().to(torch.float32).clone()
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+from outfitx_tpu_torch.models.towers.common import as_f32 as _f32
 
 
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -152,13 +152,61 @@ def _encoder_from_jax(sd, prefix: str, layers) -> None:
             _linear_from_jax(sd, f"{lp}.{name}", at(layers["mlp"][name], i))
 
 
+def _bn_from_jax(sd, prefix: str, p) -> None:
+    """A JAX folded-BatchNorm leaf set as torchvision's BatchNorm names."""
+    sd[prefix + ".weight"] = _f32(p["scale"])
+    sd[prefix + ".bias"] = _f32(p["bias"])
+    sd[prefix + ".running_mean"] = _f32(p["mean"])
+    sd[prefix + ".running_var"] = _f32(p["var"])
+
+
+def _resnet_from_jax(sd, prefix: str, p) -> None:
+    bb = p["backbone"]
+    sd[prefix + ".conv1.weight"] = _f32(bb["conv1"])
+    _bn_from_jax(sd, prefix + ".bn1", bb["bn1"])
+    for si, blocks in enumerate(bb["stages"]):
+        for bi, blk in enumerate(blocks):
+            bp = f"{prefix}.layer{si + 1}.{bi}"
+            for name in ("conv1", "conv2"):
+                sd[f"{bp}.{name}.weight"] = _f32(blk[name])
+            _bn_from_jax(sd, bp + ".bn1", blk["bn1"])
+            _bn_from_jax(sd, bp + ".bn2", blk["bn2"])
+            if "down_conv" in blk:
+                sd[bp + ".downsample.0.weight"] = _f32(blk["down_conv"])
+                _bn_from_jax(sd, bp + ".downsample.1", blk["down_bn"])
+    _linear_from_jax(sd, prefix + ".fc", p["fc"])
+
+
+def _minilm_from_jax(sd, prefix: str, p) -> None:
+    bb = p["backbone"]
+    for name in ("word_emb", "pos_emb", "type_emb"):
+        sd[f"{prefix}.{name}"] = _f32(bb[name])
+    _ln_from_jax(sd, prefix + ".emb_ln", bb["emb_ln"])
+    layers = bb["layers"]
+    for i in range(np.shape(layers["attn_ln"]["scale"])[0]):
+        lp = f"{prefix}.layers.{i}"
+        for name in ("attn_ln", "mlp_ln"):
+            _ln_from_jax(sd, f"{lp}.{name}", {k: v[i] for k, v in layers[name].items()})
+        for group, names in (("attn", "qkvo"), ("mlp", ("fc1", "fc2"))):
+            for name in names:
+                _linear_from_jax(
+                    sd, f"{lp}.{name}", {k: v[i] for k, v in layers[group][name].items()}
+                )
+    _linear_from_jax(sd, prefix + ".proj", p["proj"])
+
+
 def item_encoder_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a JAX ``ItemEncoderModel`` parameter tree ({'vision', 'text'} of
-    the clip or siglip towers, numpy arrays) onto the port's
+    the clip, siglip or resnet_sbert towers, numpy arrays) onto the port's
     ``ItemEncoderModel`` state dict, in float32: the layer stack is split
-    per layer and every ``linear`` weight transposed to (out, in)."""
+    per layer and every ``linear`` weight transposed to (out, in);
+    convolution weights keep their (Cout, Cin, K, K) layout."""
     sd: Dict[str, torch.Tensor] = {}
     vis, txt = params["vision"], params["text"]
+    if "backbone" in vis:  # resnet_sbert
+        _resnet_from_jax(sd, "vision", vis)
+        _minilm_from_jax(sd, "text", txt)
+        return sd
     _linear_from_jax(sd, "vision.patch", vis["patch"])
     sd["vision.pos_emb"] = _f32(vis["pos_emb"])
     _encoder_from_jax(sd, "vision.encoder", vis["layers"])
@@ -180,6 +228,45 @@ def item_encoder_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.
     _encoder_from_jax(sd, "text.encoder", txt["layers"])
     _ln_from_jax(sd, "text.final_ln", txt["final_ln"])
     _linear_from_jax(sd, "text.proj", txt["proj"])
+    return sd
+
+
+def _qlinear_from_jax(sd, prefix: str, q, i=None, bias=None) -> None:
+    """A JAX ``QuantLinear`` ((.., d_in, d_out) int8 values, (.., d_out)
+    scales; layer ``i`` of a stacked one) as ``QLinear`` buffers: the
+    values transposed to (d_out, d_in), int8 kept."""
+    values, scales = (np.asarray(getattr(q, k)) for k in ("values", "scales"))
+    if i is not None:
+        values, scales = values[i], scales[i]
+    sd[prefix + ".values"] = torch.from_numpy(np.ascontiguousarray(values.T)).to(torch.int8)
+    sd[prefix + ".scales"] = _f32(scales)
+    if bias is not None:
+        sd[prefix + ".bias"] = _f32(bias)
+
+
+def quantized_state_dict_from_jax(qparams: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX int8 serving tree (``outfitx_tpu/models/quantized.py
+    quantize_outfitx_params``: ``QuantLinear`` values and scales, float32
+    LayerNorms, biases, tokens and CP head; numpy leaves) onto
+    ``QuantizedOutfitX``'s state dict, so that both packages run on the same
+    int8 tables."""
+    sd: Dict[str, torch.Tensor] = {}
+    layers = qparams["layers"]
+    attn, ffn = layers["attn"], layers["ffn"]
+    for i in range(np.shape(layers["ln1"]["scale"])[0]):
+        p = f"transformer_encoder.layers.{i}."
+        _qlinear_from_jax(sd, p + "self_attn.in_proj", attn["wqkv"], i, attn["bqkv"][i])
+        _qlinear_from_jax(sd, p + "self_attn.out_proj", attn["wo"], i, attn["bo"][i])
+        _qlinear_from_jax(sd, p + "linear1", ffn["w1"], i, ffn["b1"][i])
+        _qlinear_from_jax(sd, p + "linear2", ffn["w2"], i, ffn["b2"][i])
+        for norm, ln in (("norm1", "ln1"), ("norm2", "ln2")):
+            _ln_from_jax(sd, p + norm, {k: v[i] for k, v in layers[ln].items()})
+    if "final_ln" in qparams:
+        _ln_from_jax(sd, "transformer_encoder.norm", qparams["final_ln"])
+    sd["outfit_token"] = _f32(qparams["outfit_token"])
+    sd["target_item_image_emb"] = _f32(qparams["target_image_emb"])
+    _linear_from_jax(sd, "cp_ffn.1", qparams["cp_head"])
+    _qlinear_from_jax(sd, "cir_ffn.0", qparams["cir_proj"]["w"])
     return sd
 
 

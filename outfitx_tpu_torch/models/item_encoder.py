@@ -1,11 +1,13 @@
 """The cross-modal item encoder: frozen vision and text towers with fusion.
 
 The port of ``outfitx_tpu/models/item_encoder.py``: the tower pair named by
-``cfg.encoder_type`` encodes both modalities, each embedding is optionally
+``cfg.encoder_type`` (CLIP, SigLIP, or ResNet-18 with MiniLM for
+``resnet_sbert``) encodes both modalities, each embedding is optionally
 L2-normalised, and the two are aggregated (concat, mean or sum). The towers
-are frozen: no parameter takes a gradient and every method runs under
-``torch.no_grad()``. Outputs are float32; with concat fusion the text half
-is ``emb[d // 2:]``, which the datasets rely on.
+are frozen: CLIP and SigLIP take no gradient at all, and ``resnet_sbert``
+only in its two fresh heads, ResNet's ``fc`` and MiniLM's ``proj`` (the JAX
+encoder's ``has_trainable_heads``). Outputs are float32; with concat fusion
+the text half is ``emb[d // 2:]``, which the datasets rely on.
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ from outfitx_tpu_torch.models.towers import (
     VisionTower,
     VisionTowerConfig,
 )
+from outfitx_tpu_torch.models.towers.common import ATTN_ROUTES, MLP_ROUTES
+from outfitx_tpu_torch.models.towers.minilm import MiniLM, MiniLMConfig
+from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
+from outfitx_tpu_torch.utils import aggregate_embeddings
+
+# The fresh heads of resnet_sbert, the only parameters that take a gradient.
+TRAINABLE_HEADS = ("vision.fc.", "text.proj.")
 
 
 def tower_configs(cfg: ItemEncoderConfig):
@@ -31,23 +40,28 @@ def tower_configs(cfg: ItemEncoderConfig):
         return VisionTowerConfig.clip_b32(), TextTowerConfig.clip_b()
     if cfg.encoder_type == "siglip":
         return VisionTowerConfig.siglip_b16(), TextTowerConfig.siglip_b()
-    raise NotImplementedError(
-        f"encoder_type {cfg.encoder_type!r} has no tower in this package yet"
-    )
+    if cfg.encoder_type == "resnet_sbert":
+        return (
+            ResNet18Config(d_out=cfg.dim_per_modality),
+            MiniLMConfig(d_out=cfg.dim_per_modality),
+        )
+    raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} has no towers")
 
 
 class ItemEncoderModel(nn.Module):
     """Weights are random, drawn from ``seed`` with the JAX towers'
     distributions (not their numbers), until a state dict is loaded (see
-    ``models/from_jax.py item_encoder_state_dict_from_jax``). ``attn`` and
-    ``mlp`` choose the towers' formulations (``towers/common.py``)."""
+    ``models/from_jax.py item_encoder_state_dict_from_jax`` and
+    ``models/pretrained.py``). ``attn`` and ``mlp`` choose the CLIP and
+    SigLIP towers' formulations (``towers/common.py``); ResNet-18 and MiniLM
+    have one formulation each and take neither."""
 
     def __init__(
         self,
         cfg: Optional[ItemEncoderConfig] = None,
         *,
-        vision_cfg: Optional[VisionTowerConfig] = None,
-        text_cfg: Optional[TextTowerConfig] = None,
+        vision_cfg: Optional[VisionTowerConfig | ResNet18Config] = None,
+        text_cfg: Optional[TextTowerConfig | MiniLMConfig] = None,
         device: str | torch.device = "cuda",
         seed: int = 0,
         attn: str = "mha",
@@ -70,19 +84,32 @@ class ItemEncoderModel(nn.Module):
                 )
         if cfg.aggregation not in ("concat", "mean", "sum"):
             raise ValueError(f"aggregation {cfg.aggregation!r}")
-        self.vision = VisionTower(vc, attn=attn, mlp=mlp)
-        self.text = TextTower(tc, attn=attn, mlp=mlp)
+        if cfg.encoder_type == "resnet_sbert":
+            if attn not in ATTN_ROUTES or mlp not in MLP_ROUTES:
+                raise ValueError(f"unknown tower route attn={attn!r}, mlp={mlp!r}")
+            self.vision = ResNet18(vc)
+            self.text = MiniLM(tc)
+        else:
+            self.vision = VisionTower(vc, attn=attn, mlp=mlp)
+            self.text = TextTower(tc, attn=attn, mlp=mlp)
         self.normalize_images = make_normalizer(cfg.encoder_type)
         gen = torch.Generator().manual_seed(seed)
         self.vision.init_weights_(gen)
         self.text.init_weights_(gen)
         self.to(dev)
-        self.requires_grad_(False)
+        for name, p in self.named_parameters():
+            p.requires_grad_(self.has_trainable_heads and name.startswith(TRAINABLE_HEADS))
         self.eval()
 
     @property
+    def has_trainable_heads(self) -> bool:
+        """resnet_sbert trains its fresh heads; CLIP and SigLIP are wholly
+        frozen."""
+        return self.cfg.encoder_type == "resnet_sbert"
+
+    @property
     def device(self) -> torch.device:
-        return self.text.tok_emb.device
+        return self.text.pos_emb.device
 
     @property
     def image_size(self) -> int:
@@ -98,27 +125,23 @@ class ItemEncoderModel(nn.Module):
             emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
         return emb
 
-    @torch.no_grad()
     def encode_images(self, images_uint8: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) uint8 -> (B, d) float32 image embeddings."""
         return self._finish(self.vision(self.normalize_images(images_uint8)))
 
-    @torch.no_grad()
     def encode_texts(
         self, input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """(B, T) token ids -> (B, d) float32 text embeddings. MiniLM pools
+        over ``attention_mask`` and takes all-ones where none is given."""
+        if self.cfg.encoder_type == "resnet_sbert" and attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
         return self._finish(self.text(input_ids, attention_mask))
 
     def aggregate(self, image_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
-        agg = self.cfg.aggregation
-        if agg == "concat":
-            return torch.cat([image_emb, text_emb], dim=-1)
-        if agg == "mean":
-            return 0.5 * (image_emb + text_emb)
-        return image_emb + text_emb
+        return aggregate_embeddings(image_emb, text_emb, self.cfg.aggregation)
 
-    @torch.no_grad()
     def encode(
         self, images_uint8: torch.Tensor, input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,

@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,6 +43,13 @@ from outfitx_tpu_torch.ops.mlp import mlp_fused
 
 ATTN_ROUTES = ("mha", "block")
 MLP_ROUTES = ("plain", "fused")
+
+
+def as_f32(x) -> torch.Tensor:
+    """A weight (tensor or numpy array) as a float32 tensor of its own."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).clone()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
 def init_linear_(lin: nn.Linear, gen: torch.Generator) -> None:

@@ -291,18 +291,13 @@ def build_engine(
     model and touches no device. ``quantized`` serves whole-catalog
     retrieval from the int8 catalog and drops the per-category pools.
     ``attn="block"`` serves the set transformer through the fused attention
-    block (``OutfitXModel``'s ``attn``).
+    block (``OutfitXModel``'s ``attn``). ``quantize_model`` serves the int8
+    (W8A8) twin of the weights (``ServingEngine``'s ``quantize_model``).
     """
-    if shard_catalog or quantize_model:
-        asked = [
-            name for name, on in
-            (("shard_catalog", shard_catalog), ("quantize_model", quantize_model))
-            if on
-        ]
+    if shard_catalog:
         raise NotImplementedError(
-            f"{asked} not ported to PyTorch yet: the mesh-sharded catalog "
-            "comes with the parallelism slice, the int8 model forward "
-            "(models/quantized.py) with the slice before it"
+            "['shard_catalog'] not ported to PyTorch yet: the mesh-sharded "
+            "catalog comes with the parallelism slice"
         )
     if not mock:
         resolve_device(device)  # fail before any loading when there is no card
@@ -382,6 +377,7 @@ def build_engine(
         cir_split=cir_split,
         fitb_split=fitb_split,
         attn=attn,
+        quantize_model=quantize_model,
     )
 
 

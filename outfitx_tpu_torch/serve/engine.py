@@ -18,9 +18,9 @@ The sibling modules carry the rest behind the same ``ServingEngine``:
 - serve/browse.py      dataset-sample browsing views
 
 Top-k is exact on every route (``approx_topk`` is accepted; see
-``ops/retrieval.py``). The int8 model forward (``quantize_model``) and the
-mesh-sharded catalog (``mesh``) are not ported yet: asking for one raises
-``NotImplementedError``.
+``ops/retrieval.py``). ``quantize_model`` serves the int8 (W8A8) twin of
+each model (``models/quantized.py``). The mesh-sharded catalog (``mesh``)
+is not ported yet: asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from outfitx_tpu_torch.data.catalog import Catalog
 from outfitx_tpu_torch.data.sampler import CandidatePools
 from outfitx_tpu_torch.data.splits import CPSplit, FITBSplit, OutfitSplit, _pad_outfits
 from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+from outfitx_tpu_torch.models.quantized import QuantizedOutfitX, quantize_outfitx_params
 from outfitx_tpu_torch.ops.quantization import quantize_catalog
 from outfitx_tpu_torch.serve.batched import BatchedRequests
 from outfitx_tpu_torch.serve.browse import BrowseViews
@@ -97,7 +98,9 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     mock: bool = False
     # int8 catalog for whole-catalog retrieval
     quantized: bool = False
-    # int8 (W8A8) transformer forward: not ported yet, raises.
+    # int8 (W8A8) transformer forward: the params are quantized once at
+    # construction (once when CP and CIR share them) and the int8 twin
+    # serves every task.
     quantize_model: bool = False
     # Reserve this many spare catalog rows at construction so ``add_items``
     # can append new items at runtime without any shape change. Spare rows
@@ -134,15 +137,15 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     attn: str = "mha"
 
     def __post_init__(self):
-        unported = {
-            "quantize_model": (self.quantize_model, "the int8 model forward"),
-            "mesh": (self.mesh is not None, "the mesh-sharded catalog"),
-        }
-        asked = [f"{name} ({what})" for name, (on, what) in unported.items() if on]
-        if asked:
+        if self.mesh is not None:
             raise NotImplementedError(
-                f"serving routes not ported to PyTorch yet: {asked}; they "
-                "come with a later slice of the port"
+                "serving route not ported to PyTorch yet: mesh (the "
+                "mesh-sharded catalog); it comes with a later slice of the port"
+            )
+        if self.quantize_model and self.attn != "mha":
+            raise ValueError(
+                f"quantize_model has no attn={self.attn!r} route: the int8 "
+                "forward runs masked_mha between its int8 products"
             )
         if self.catalog_dtype not in _CATALOG_DTYPES:
             raise ValueError(
@@ -167,6 +170,16 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
                     if arr is not None:
                         arr[arr == old_pad] = new_pad
         self._rng = _LockedRng(np.random.default_rng(0))
+        if self.quantize_model and not self.mock:
+            # Quantize once; CP and CIR often share one state dict.
+            shared = self.cir_params is self.cp_params
+            if self.cp_params is not None:
+                self.cp_params = quantize_outfitx_params(self.cp_params, self.model_cfg)
+            if self.cir_params is not None:
+                self.cir_params = (
+                    self.cp_params if shared
+                    else quantize_outfitx_params(self.cir_params, self.model_cfg)
+                )
         self._dev = None
         self.catalog_dev = None
         self._qcat = None
@@ -205,10 +218,13 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
         if self.warmup:
             self._warmup()
 
-    def _model(self, state_dict) -> Optional[OutfitXModel]:
+    def _model(self, state_dict) -> Optional[OutfitXModel | QuantizedOutfitX]:
         if state_dict is None:
             return None
-        model = OutfitXModel(self.model_cfg, device=self._dev, attn=self.attn)
+        if self.quantize_model:
+            model = QuantizedOutfitX(self.model_cfg, device=self._dev)
+        else:
+            model = OutfitXModel(self.model_cfg, device=self._dev, attn=self.attn)
         model.load_state_dict(state_dict, strict=True)
         return model.eval()
 

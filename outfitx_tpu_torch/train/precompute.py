@@ -181,11 +181,12 @@ class PrecomputeRunner:
     def encode_batch(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         """One batch's embeddings (n, d_embed) float32, on the host."""
         dev = self.device
-        emb = self.encoder.encode(
-            torch.from_numpy(batch["images"]).to(dev),
-            torch.from_numpy(batch["input_ids"]).to(dev),
-            torch.from_numpy(batch["attention_mask"]).to(dev),
-        )
+        with torch.no_grad():  # resnet_sbert's heads would record a graph
+            emb = self.encoder.encode(
+                torch.from_numpy(batch["images"]).to(dev),
+                torch.from_numpy(batch["input_ids"]).to(dev),
+                torch.from_numpy(batch["attention_mask"]).to(dev),
+            )
         return emb.cpu().numpy()
 
     def run(self) -> Dict[str, float]:

@@ -667,6 +667,8 @@ def test_build_engine_options(tmp_path):
     assert len(eng.sample_cp(2)) == 2
     mock = app.build_engine(synthetic=True, mock=True, model_cfg=cfg)  # no device asked
     assert mock.mock and mock.cp_params is None and mock.pools is not None
-    for option in ("shard_catalog", "quantize_model"):
-        with pytest.raises(NotImplementedError, match="later|slice"):
-            app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", **{option: True})
+    with pytest.raises(NotImplementedError, match="later|slice"):
+        app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", shard_catalog=True)
+    # The int8 model forward is ported: the flag reaches the engine.
+    q8 = app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", quantize_model=True)
+    assert q8.quantize_model and type(q8.cp_model).__name__ == "QuantizedOutfitX"

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: nothing in ``outfitx_tpu_torch`` or in
-``chip_smoke.py`` imports JAX or the JAX package."""
+``chip_smoke.py`` imports JAX, the JAX package or ``safetensors``."""
 
 import ast
 import pathlib
@@ -9,7 +9,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "outfitx_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "outfitx_tpu", "safetensors"}
 PORT_FILES = sorted((ROOT / "outfitx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -40,6 +40,8 @@ def test_port_files_found():
         "ops/layernorm.py", "ops/quantization.py", "ops/retrieval.py",
         "serve/app.py", "serve/browse.py", "serve/coalesce.py", "serve/engine.py",
         "serve/live_update.py", "serve/openapi.py", "serve/stats.py", "serve/ui.py",
+        "models/quantized.py", "models/convert.py", "models/pretrained.py",
+        "models/towers/resnet.py", "models/towers/minilm.py", "utils/__init__.py",
     ):
         assert module in scanned, module
 
@@ -85,16 +87,20 @@ def test_importing_the_whole_port_loads_no_jax():
 
 def test_importing_the_whole_port_loads_no_pil_and_no_transformers():
     """The card's machine has no PIL, and tokenizer files are optional: both
-    are imported inside the functions that need them."""
+    are imported inside the functions that need them. ``safetensors`` is
+    never imported: the port reads the format itself
+    (``models/pretrained.py read_safetensors``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import outfitx_tpu_torch\n"
         "for m in pkgutil.walk_packages(outfitx_tpu_torch.__path__, 'outfitx_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'transformers'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('PIL', 'transformers', 'safetensors'))\n"
         "assert not bad, bad\n"
         "assert 'outfitx_tpu_torch.train.precompute' in sys.modules\n"
+        "assert 'outfitx_tpu_torch.models.pretrained' in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -132,8 +132,13 @@ def test_tower_width_must_agree_with_dim_per_modality():
 
 
 def test_resnet_sbert_waits_for_its_towers():
-    with pytest.raises(NotImplementedError, match="resnet_sbert"):
-        ItemEncoderModel(ItemEncoderConfig.for_type("resnet_sbert"), device="cpu")
+    """The resnet_sbert towers are ported: the default configuration builds
+    ResNet-18 and MiniLM at the JAX package's widths."""
+    enc = ItemEncoderModel(ItemEncoderConfig.for_type("resnet_sbert"), device="cpu")
+    assert type(enc.vision).__name__ == "ResNet18" and type(enc.text).__name__ == "MiniLM"
+    assert (enc.image_size, enc.text_vocab_size, enc.cfg.d_embed) == (224, 30522, 128)
+    with pytest.raises(NotImplementedError, match="towers"):
+        ItemEncoderModel(ItemEncoderConfig(encoder_type="vit_huge"), device="cpu")
 
 
 def test_configs_match_the_jax_defaults():

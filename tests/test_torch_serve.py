@@ -171,13 +171,18 @@ def test_device_defaults_to_cuda_and_raises_without_it(tiny_cfg):
 
 
 @pytest.mark.parametrize(
-    "option",
-    [{"quantize_model": True}, {"mesh": object()}],
-    ids=lambda o: next(iter(o)),
+    "option, error, match",
+    [
+        # The int8 forward is ported; its attn="block" route exists in
+        # neither package.
+        ({"quantize_model": True, "attn": "block"}, ValueError, "no attn='block' route"),
+        ({"mesh": object()}, NotImplementedError, "later slice"),
+    ],
+    ids=["quantize_model", "mesh"],
 )
-def test_unported_routes_raise(tiny_cfg, option):
+def test_unported_routes_raise(tiny_cfg, option, error, match):
     data = make_synthetic(**DATA)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(error, match=match):
         ServingEngine(
             model_cfg=port_config(tiny_cfg), catalog=data.catalog, device="cpu",
             warmup=False, **option,
