@@ -28,8 +28,12 @@ Phases, each printing one JSON line:
             (64,12,64,32) with tail-padded keys and at (4096,16,17,8), the
             set transformer over resnet_sbert embeddings on the bfloat16
             scalar route, causal and not; layernorm at MiniLM's 131,072 x
-            384 rows with eps 1e-12); the stream a wrapper hands its
-            kernel is PyTorch's current one;
+            384 rows with eps 1e-12; the original-CP path's shapes:
+            the backward at (350,16,17,8) (Dh=8, the scalar route) causal
+            and not, the forward at MiniLM's (5600,12,16,32) tail-padded,
+            layernorm at 89,600 x 384 (eps 1e-12) and 5,950 x 128 with its
+            closed-form backward); the stream a wrapper hands its kernel is
+            PyTorch's current one;
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
@@ -49,8 +53,13 @@ Phases, each printing one JSON line:
             validation pass and the final checkpoint; (c) ``CIRTrainer``
             warm-started from that checkpoint for 2 steps at B=512 and one
             recall evaluation; the launch counts of (b) and (c) are checked;
-            then the CP train step's time, outfits/s, peak memory, a
-            profile by kernel and the attention backward's device ms a step;
+            (d) ``FITBTrainer`` restores (c)'s final checkpoint and answers
+            the FITB split (6 attention and 12 LayerNorm launches a
+            forward), 64 picks against the CPU in float32 with the near-tie
+            rule; saves are asynchronous (``async_saves``), the final
+            checkpoint equals the live parameters; then the CP train step's
+            time, outfits/s, peak memory, a profile by kernel and the
+            attention backward's device ms a step;
 6. precompute  ``PrecomputeRunner`` with the SigLIP item encoder at full
             width (ViT-B/16 at 196 tokens, text at L=64, d=768, 12 layers,
             random weights from seed 0): 4,096 synthetic items at batch 2048
@@ -80,7 +89,23 @@ Phases, each printing one JSON line:
             int8-chunked routes (chunked equals dense, int8 overlaps it),
             each route's ms and peak memory, ``torch.topk`` alone, and a
             live update of 1,500 rows against a full requantisation;
-9. timing   kernel, plain version and the PyTorch library call at the
+9. original_cp  ``OriginalCPTrainer`` at full width (ResNet-18 at 224 x
+            224 and MiniLM 6 x 384 at T=16 inside the train step, the set
+            transformer at d_embed 128, bf16) on a synthetic raw source at
+            the reference envelope B=350 x A=10: one small step card against
+            CPU (loss, head gradients), 2 optimizer steps, a validation pass
+            and asynchronous best checkpoints, exact launch counts a
+            microbatch (12 attention forwards, 6 backwards, 25 LayerNorms),
+            frozen backbones bit-identical; step seconds, outfits/s, tower
+            items/s, peak memory, the host gather's share of the step and a
+            profile of one step;
+10. cli     the command line in child processes on the card: ``cp``,
+            ``cir`` warm-started from it, ``fitb`` from the CIR checkpoint,
+            ``export-torch`` (the .pth loads strictly and scores as the
+            checkpoint), ``pes --shards 2`` (shards read back),
+            ``original-cp`` at a small batch, ``demo --max-age`` (one
+            request, then exit 81), each with the launches it made;
+11. timing  kernel, plain version and the PyTorch library call at the
             serving bucket (B=8), the training and throughput shapes and
             the towers' shapes at batch 2048 (attention also at the CLIP
             towers' L=50 and causal L=77; the bytes that attn_block and
@@ -93,7 +118,10 @@ Phases, each printing one JSON line:
             quantize and dequantize passes, attention and LayerNorm; its
             cp_score p50/p99) and ``torch._int_mm`` against ``torch.matmul``
             in bfloat16 at (69632, 1536) x (1536, 4608); attention also at
-            MiniLM's (2048,12,64,32) and at Dh=8, layernorm at 384.
+            MiniLM's (2048,12,64,32) and at Dh=8, layernorm at 384; the
+            original-CP path's attention (5600,12,16,32) and
+            (350,16,17,8) forward and backward, layernorm at 89,600 x 384
+            and 5,950 x 128.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -182,6 +210,15 @@ SLICE8_MHA_SHAPES = [
     ((64, 12, 64, 32), False, True),
     ((4096, 16, 17, 8), False, False), ((4096, 16, 17, 8), True, False),
 ]
+# The original-CP path's shapes: MiniLM at T=16 over the 5,600 texts of one
+# microbatch (350 outfits x 16 items), keys padded at each row's tail; the
+# set transformer over its embeddings (d_embed 128, Dh=8) forward and
+# backward (the bfloat16 scalar route of both kernels), with padded keys; and
+# LayerNorm at MiniLM's 89,600 rows (eps 1e-12) and the set transformer's
+# 5,950 (eps 1e-5). (shape, causal, tail-padded keys) for the forward.
+OCP_MHA_SHAPES = [((5600, 12, 16, 32), False, True)]
+OCP_BWD_SHAPES = [(350, 16, 17, 8)]
+OCP_LAYERNORM_SHAPES = [((89600, 384), 1e-12), ((5950, 128), 1e-5)]
 # The forward's timing rows at the towers' lengths, batch 2048: SigLIP
 # ViT-B/16, CLIP ViT-B/32, CLIP text (causal), MiniLM; and the set
 # transformer over resnet_sbert embeddings at B=4096.
@@ -191,6 +228,8 @@ TOWER_MHA_TIMING = [
     ("clip_text_tower", (2048, 8, 77, 64), True),
     ("minilm_text_tower", (2048, 12, 64, 32), False),
     ("resnet_sbert_set_transformer", (4096, 16, 17, 8), False),
+    ("original_cp_minilm", (5600, 12, 16, 32), False),
+    ("original_cp_set_transformer", (350, 16, 17, 8), False),
 ]
 # Host time of one layernorm launch at the serving bucket, by the host clock
 # over this many calls with one synchronisation at the end, in this many
@@ -229,9 +268,9 @@ LAYERNORM_SHAPES = [
 # rows, the vision and the text tower's rows at batch 2048, MiniLM's rows.
 LAYERNORM_TIMING_SHAPES = [
     (69632, 1536), (52224, 1536), (401408, 768), (131072, 768), (136, 1536),
-    (131072, 384),
+    (131072, 384), (89600, 384), (5950, 128),
 ]
-LAYERNORM_EPS = {1536: 1e-5, 768: 1e-6, 384: 1e-12}
+LAYERNORM_EPS = {1536: 1e-5, 768: 1e-6, 384: 1e-12, 128: 1e-5}
 KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"]
 # Precompute: the JAX CLI's default synthetic catalog and PrecomputeConfig's
 # batch; the fused-MLP pass and the CLIP pair run one smaller sweep each.
@@ -293,6 +332,20 @@ CATALOG_ITEMS = 32768
 CHECK_B, CHECK_A = 64, 2
 TRAIN_LOSS_REL = 0.02
 GRAD_COS_MIN = 0.99
+# FITB from the train phase's CIR checkpoint: the card's picks against the
+# CPU's (float32) on this many questions.
+FITB_CPU_QUESTIONS = 64
+
+# Original-CP at the reference envelope (B=350 outfits of 16 items a
+# microbatch, A=10) for 2 optimizer steps over a synthetic raw source of
+# 2,000 items (the JAX CLI's synthetic catalog); one step at B=4, A=2 card
+# (bfloat16) against CPU (float32).
+OCP_B, OCP_A, OCP_STEPS = 350, 10, 2
+OCP_ITEMS = 2000
+OCP_CHECK_B, OCP_CHECK_A = 4, 2
+# The CLI phase: each command a child process, with this time limit.
+CLI_TIMEOUT_S = 300
+CLI_DEMO_AGE_S = 10.0
 
 
 def emit(obj) -> None:
@@ -669,7 +722,7 @@ def _tower_kernel_checks():
 
     mha_cases, block_cases, mlp_cases = [], [], []
     shapes = [(shape, causal, False) for shape, causal in TOWER_MHA_SHAPES + FWD_TILE_SHAPES]
-    for si, (shape, causal, tail) in enumerate(shapes + SLICE8_MHA_SHAPES):
+    for si, (shape, causal, tail) in enumerate(shapes + SLICE8_MHA_SHAPES + OCP_MHA_SHAPES):
         inputs = tail_padded_attention_inputs if tail else attention_inputs
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pad = inputs(shape, dtype, seed=20 + si)
@@ -731,7 +784,7 @@ def _layernorm_checks():
     )
 
     cases = []
-    for si, (shape, eps) in enumerate(LAYERNORM_SHAPES):
+    for si, (shape, eps) in enumerate(LAYERNORM_SHAPES + OCP_LAYERNORM_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, weight, bias = layernorm_inputs(shape, dtype, seed=50 + si)
             got = _layer_norm_cuda(x, weight, bias, eps)
@@ -769,8 +822,11 @@ def _layernorm_checks():
     # The closed form against autograd through the plain version, and the
     # autograd.Function end to end (kernel forward, closed-form backward).
     bwd = []
-    for dtype, eps in ((torch.float32, 1e-5), (torch.bfloat16, 1e-6)):
-        x, weight, bias = layernorm_inputs((64, 17, 1536), dtype, seed=70)
+    for shape, dtype, eps in (
+        ((64, 17, 1536), torch.float32, 1e-5), ((64, 17, 1536), torch.bfloat16, 1e-6),
+        ((5950, 128), torch.float32, 1e-5), ((5950, 128), torch.bfloat16, 1e-5),
+    ):
+        x, weight, bias = layernorm_inputs(shape, dtype, seed=70)
         g = torch.randn(x.shape, device="cuda").to(dtype)
         xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, weight, bias))
         want = torch.autograd.grad(layer_norm_reference(xr, wr, br, eps), (xr, wr, br), g)
@@ -780,8 +836,9 @@ def _layernorm_checks():
         torch.cuda.synchronize()
         case = {"shape": list(x.shape), "eps": eps, "dtype": _dtype_name(dtype)}
         for name, a, f, r in zip(("dx", "dweight", "dbias"), closed, through, want):
-            # dweight and dbias are float32 sums over 1,088 rows in another
-            # order than autograd's: relative 1e-4 of the largest entry.
+            # dweight and dbias are float32 sums over 1,088 (5,950) rows in
+            # another order than autograd's: relative 1e-4 of the largest
+            # entry.
             tol = 1e-4 * float(r.float().abs().max()) if name != "dx" else None
             for label, t in (("closed", a), ("function", f)):
                 err = float((t.float() - r.float()).abs().max())
@@ -824,7 +881,7 @@ def _bwd_kernel_checks():
     from outfitx_tpu_torch.ops.attention import _masked_mha_bwd_cuda, mha_bwd_reference
 
     cases = []
-    for si, shape, dtype, causal in _cases(BWD_SHAPES + BWD_TILE_SHAPES):
+    for si, shape, dtype, causal in _cases(BWD_SHAPES + BWD_TILE_SHAPES + OCP_BWD_SHAPES):
         q, k, v, pad = attention_inputs(shape, dtype, seed=si)
         tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
         gen = torch.Generator(device="cuda").manual_seed(100 + si)
@@ -1260,6 +1317,10 @@ def _cp_trainer_run(cfg, data, root):
     check(all(torch.equal(final["params"][n], live[n].float().cpu()) for n in live),
           "checkpoint parameters differ from the model's")
     check(int(final["opt_state"]["count"]) == TRAIN_STEPS, "checkpoint optimizer count")
+    check(tcfg.async_saves, "CPTrainer saves are not asynchronous")
+    best = t.ckpt.restore("best_auc")
+    check(best["meta"]["epoch"] == 0 and sorted(best["params"]) == sorted(live),
+          f"best_auc checkpoint {best['meta']}")
     return t, {
         "batch": TRAIN_B, "accumulation": TRAIN_A, "steps": t.state.step,
         "dropout": cfg.transformer.dropout, "train_outfits": len(data.cp_train),
@@ -1269,7 +1330,7 @@ def _cp_trainer_run(cfg, data, root):
         "masked_mha_bwd_launches": launches[1],
         "layernorm_launches": launches[2],
         "peak_memory_bytes": peak, "params_on_path": len(on_path),
-        "checkpoint": "final round-trips",
+        "checkpoint": "final round-trips; best_auc written by the async writer",
     }
 
 
@@ -1309,7 +1370,7 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
     check(all(0.0 <= x <= 1.0 for x in recall.values()), f"recall {recall}")
     losses = [r["loss"] for r in train] + [valid["loss"]]
     check(all(math.isfinite(x) for x in losses), f"non-finite CIR loss {losses}")
-    return {
+    return t, {
         "batch": tcfg.batch_size, "steps": t.state.step, "run_s": run_s,
         "train_loss": train[-1]["loss"], "valid": valid,
         "pools": len(t._pools.pools), "pool_size": t._pools.pool_size,
@@ -1317,6 +1378,66 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
         "masked_mha_bwd_launches": launches[1],
         "layernorm_launches": launches[2],
     }
+
+
+def _fitb_run(cfg, data, cir_trainer, root):
+    """FITBTrainer restores the CIR trainer's final checkpoint at full width
+    and answers the FITB split in one forward of 512 (6 attention and 12
+    LayerNorm launches); the first FITB_CPU_QUESTIONS picks against the
+    CPU's in float32 from the same checkpoint: the share that agree at least
+    FITB_MIN, and where they differ the card's pick a near-tie on the CPU
+    (squared distance within CIR_TIE_REL of the CPU's best)."""
+    from outfitx_tpu_torch.core.config import FITBTrainConfig
+    from outfitx_tpu_torch.data.splits import FITBSplit
+    from outfitx_tpu_torch.train.fitb_trainer import FITBTrainer
+    from outfitx_tpu_torch.train.steps import gather
+
+    path = str(cir_trainer.ckpt.path("final"))
+    fcfg = FITBTrainConfig(checkpoint_from=path, checkpoint_dir=str(root / "ckpt"),
+                           log_dir=str(root / "logs"))
+    split = data.fitb_test
+    with FITBTrainer(fcfg, cfg, catalog=data.catalog, test_split=split,
+                     device="cuda") as t:
+        _reset_ocp_counts()
+        acc = t.run()
+        torch.cuda.synchronize()
+        counts = _ocp_counts()
+        forwards = -(-len(split) // t.eval_batch_size)
+        n_layers = cfg.transformer.n_layers
+        want = {"masked_mha_fwd": n_layers * forwards, "masked_mha_bwd": 0,
+                "layernorm": _ln_per_forward(cfg) * forwards}
+        check(counts == want, f"FITB launches {counts}, expected {want}")
+        del counts["masked_mha_bwd"]  # evaluation: not a kernel of this path
+        card = t.predict()
+    check(0.0 <= acc["accuracy"] <= 1.0, f"FITB accuracy {acc}")
+    n = FITB_CPU_QUESTIONS
+    sub = FITBSplit(split.item_rows[:n], split.mask[:n], split.cand_rows[:n],
+                    split.answer_idx[:n])
+    cpu_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    with FITBTrainer(fcfg, cpu_cfg, catalog=data.catalog, test_split=sub,
+                     eval_batch_size=n, device="cpu") as c, torch.no_grad():
+        cpu = c.predict()
+        cat, d = c.catalog_dev, data.catalog.d_embed
+        answer_rows = torch.as_tensor(sub.cand_rows[np.arange(n), sub.answer_idx])
+        pred = c.model.eval().cir_forward(
+            gather(cat, torch.as_tensor(sub.item_rows)), torch.as_tensor(sub.mask),
+            gather(cat, answer_rows)[:, d // 2:],
+        )
+        d2 = ((pred[:, None, :] - gather(cat, torch.as_tensor(sub.cand_rows))) ** 2).sum(-1)
+        d2 = d2.numpy()
+    check(np.array_equal(np.argmin(d2, axis=1), cpu["picks"]), "CPU FITB picks")
+    picks = card["picks"][:n]
+    agree = float(np.mean(picks == cpu["picks"]))
+    rows = np.arange(n)
+    gaps = (d2[rows, picks] - d2[rows, cpu["picks"]]) / np.maximum(d2[rows, cpu["picks"]], 1e-6)
+    check(agree >= FITB_MIN, f"FITB picks agree with the CPU's on {agree}")
+    check(float(gaps.max()) <= CIR_TIE_REL, f"FITB pick no near-tie: gap {gaps.max()}")
+    return {
+        "checkpoint": "the CIR trainer's final", "questions": len(split),
+        "accuracy": acc["accuracy"], "launches": counts,
+        "cpu_questions": n, "agree_with_cpu_f32": agree,
+        "worst_rel_gap": float(gaps.max()),
+    }, counts
 
 
 def _step_timing(cp_trainer):
@@ -1377,7 +1498,8 @@ def phase_train():
 
     step_check = _train_step_check(cfg, cp_data)
     cp_trainer, cp = _cp_trainer_run(cfg, cp_data, root)
-    cir = _cir_trainer_run(cfg, cir_data, cp_trainer, root)
+    cir_trainer, cir = _cir_trainer_run(cfg, cir_data, cp_trainer, root)
+    fitb, fitb_counts = _fitb_run(cfg, cir_data, cir_trainer, root)
     timing = _step_timing(cp_trainer)
     bwd_kind = timing["train_step_profile"]["by_kind"].get("masked_mha_bwd", {})
     timing["masked_mha_bwd_ms_per_step"] = bwd_kind.get("device_ms", 0.0)
@@ -1387,13 +1509,268 @@ def phase_train():
         "d_embed": cfg.d_embed, "n_layers": cfg.transformer.n_layers,
         "catalog_items": cp_data.catalog.n_items, "data_s": data_s,
         "step_check": step_check, "cp_trainer": cp, "cir_trainer": cir,
-        **timing,
+        "fitb": fitb, **timing,
     })
     return {
-        "masked_mha_fwd": cp["masked_mha_fwd_launches"] + cir["masked_mha_fwd_launches"],
-        "masked_mha_bwd": cp["masked_mha_bwd_launches"] + cir["masked_mha_bwd_launches"],
-        "layernorm": cp["layernorm_launches"] + cir["layernorm_launches"],
+        "train": {
+            "masked_mha_fwd": cp["masked_mha_fwd_launches"] + cir["masked_mha_fwd_launches"],
+            "masked_mha_bwd": cp["masked_mha_bwd_launches"] + cir["masked_mha_bwd_launches"],
+            "layernorm": cp["layernorm_launches"] + cir["layernorm_launches"],
+        },
+        "fitb": fitb_counts,
     }
+
+
+def _ocp_counts():
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+
+    return {
+        "masked_mha_fwd": masked_mha.launches,
+        "masked_mha_bwd": masked_mha.bwd_launches,
+        "layernorm": layer_norm.launches,
+    }
+
+
+def _reset_ocp_counts():
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+
+    masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
+
+
+def _ocp_step_grads(net, source, split, device):
+    """One original-CP train step (B=OCP_CHECK_B, A=OCP_CHECK_A, the first
+    outfits of ``split``) from ``net``'s weights: (loss, {name: gradient on
+    the CPU})."""
+    from outfitx_tpu_torch.core.config import OptimizerConfig
+    from outfitx_tpu_torch.train.optim import AdamW
+    from outfitx_tpu_torch.train.original_cp_trainer import RawBatchStager
+    from outfitx_tpu_torch.train.state import TrainState
+    from outfitx_tpu_torch.train.steps import original_cp_train_step
+
+    stage = RawBatchStager(source, torch.device(device))
+    state = TrainState.create(net, AdamW(net.parameters(), OptimizerConfig(), 1), seed=0)
+    b = OCP_CHECK_B
+    mbs = (
+        stage(split.item_rows[i * b:(i + 1) * b], mask=split.mask[i * b:(i + 1) * b],
+              label=split.labels[i * b:(i + 1) * b])
+        for i in range(OCP_CHECK_A)
+    )
+    out = original_cp_train_step(state, mbs)
+    grads = {
+        n: p.grad.detach().double().cpu().reshape(-1)
+        for n, p in net.named_parameters() if p.grad is not None
+    }
+    return float(out["loss"]), grads
+
+
+def _ocp_step_check(model_cfg, encoder, source, split):
+    """The card's bfloat16 original-CP step against the CPU's float32 one,
+    from the same weights, dropout 0: the loss and the gradients (the
+    encoder heads' held to GRAD_COS_MIN; the worst of all reported)."""
+    from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.train.original_cp_trainer import OriginalCPModel
+
+    cfg0 = dataclasses.replace(
+        model_cfg, transformer=dataclasses.replace(model_cfg.transformer, dropout=0.0)
+    )
+
+    def twin(device, dtype):
+        """``encoder``'s weights on ``device``, its towers computing in
+        ``dtype``."""
+        enc = ItemEncoderModel(
+            encoder.cfg,
+            vision_cfg=dataclasses.replace(encoder.vision.cfg, compute_dtype=dtype),
+            text_cfg=dataclasses.replace(encoder.text.cfg, compute_dtype=dtype),
+            device=device,
+        )
+        enc.load_state_dict(encoder.state_dict())
+        return enc
+
+    gpu = OriginalCPModel(OutfitXModel(cfg0, device="cuda", seed=1, trainable=True),
+                          twin("cuda", encoder.vision.cfg.compute_dtype))
+    cpu = OriginalCPModel(OutfitXModel(
+        dataclasses.replace(cfg0, compute_dtype="float32"), device="cpu", trainable=True
+    ), twin("cpu", "float32"))
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    loss_gpu, grads_gpu = _ocp_step_grads(gpu, source, split, "cuda")
+    loss_cpu, grads_cpu = _ocp_step_grads(cpu, source, split, "cpu")
+    check(sorted(grads_gpu) == sorted(grads_cpu), "original-CP gradients of other parameters")
+    cos = {
+        n: float(F.cosine_similarity(grads_gpu[n], grads_cpu[n], dim=0)) for n in grads_cpu
+    }
+    heads = {n: c for n, c in cos.items() if n.startswith("encoder.")}
+    check(len(heads) == 4, f"original-CP head gradients: {sorted(heads)}")
+    worst, worst_head = min(cos, key=cos.get), min(heads, key=heads.get)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    check(math.isfinite(loss_gpu), "non-finite original-CP card loss")
+    check(rel <= TRAIN_LOSS_REL, f"original-CP card loss {loss_gpu} vs CPU {loss_cpu}")
+    check(heads[worst_head] >= GRAD_COS_MIN,
+          f"original-CP gradient of {worst_head}: cosine {heads[worst_head]}")
+    return {
+        "batch": OCP_CHECK_B, "accumulation": OCP_CHECK_A,
+        "loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel_err": rel,
+        "head_grad_cosines": heads, "grads_compared": len(cos),
+        "worst_grad": worst, "worst_grad_cosine": cos[worst],
+    }
+
+
+def _ocp_step_timing(t):
+    """One optimizer step at B=OCP_B x A=OCP_A: host clock around
+    synchronised steps, the host gather's seconds within them, peak memory,
+    and a profile of one step by kernel."""
+    from outfitx_tpu_torch.train.steps import original_cp_train_step
+
+    split = t._train_split
+    sels = next(t.step_selections(split, 0))
+
+    def step():
+        return original_cp_train_step(
+            t.state, (t.microbatch(split, sel) for sel in sels),
+            alpha=t.cfg.focal_alpha, gamma=t.cfg.focal_gamma,
+        )
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, gathers = [], []
+    for _ in range(2):
+        g0 = t.stage.gather_s
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        gathers.append(t.stage.gather_s - g0)
+    step_s = float(np.mean(times))
+    items = OCP_B * OCP_A * t.model_cfg.max_outfit_len
+    return {
+        "step_s": step_s, "step_s_each": times,
+        "outfits_per_s": OCP_B * OCP_A / step_s,
+        "tower_items_per_s": items / step_s,
+        "host_gather_s_each": gathers,
+        "host_gather_share_of_step": float(np.mean(gathers)) / step_s,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "step_profile": profile_call(step, top=14),
+    }
+
+
+def phase_original_cp():
+    """``OriginalCPTrainer`` at full width: ResNet-18 at 224 x 224 and MiniLM
+    6 x 384 at T=16 inside the train step, the set transformer at d_embed 128
+    (6 layers, 16 heads of Dh=8), bfloat16, on a synthetic raw source at the
+    reference envelope (B=350 x A=10) for OCP_STEPS optimizer steps, one
+    validation pass and its asynchronous best checkpoints, then the final
+    one. Checks: one small step card against CPU, the frozen backbones
+    bit-identical after training, exact launch counts a microbatch (MiniLM 6
+    attention and 13 LayerNorm; the set transformer 6 forward and 6 backward
+    attention and 12 LayerNorm), finite metrics, the final checkpoint equal
+    to the live parameters in the JAX trainer's tree."""
+    from outfitx_tpu_torch.core.config import CPTrainConfig, ItemEncoderConfig, OutfitXConfig
+    from outfitx_tpu_torch.data.synthetic import make_synthetic
+    from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel
+    from outfitx_tpu_torch.models.towers.common import LayerNorm
+    from outfitx_tpu_torch.train.original_cp_trainer import OriginalCPTrainer, RawItemSource
+
+    root = ROOT / "build" / "chip_smoke" / "original_cp"
+    shutil.rmtree(root, ignore_errors=True)
+    model_cfg = OutfitXConfig(item_encoder=ItemEncoderConfig.for_type("resnet_sbert"))
+    t0 = time.perf_counter()
+    encoder = ItemEncoderModel(model_cfg.item_encoder, device="cuda", seed=0)
+    vc, tc = encoder.vision.cfg, encoder.text.cfg
+    check((vc.image_size, vc.stage_channels, tc.d_model, tc.n_heads, tc.n_layers, tc.d_mlp)
+          == (224, (64, 128, 256, 512), 384, 12, 6, 1536),
+          f"original-CP towers are not ResNet-18 and MiniLM-L6: {vc} {tc}")
+    text_len = min(16, tc.max_len)
+    data = make_synthetic(
+        n_items=OCP_ITEMS, d_embed=model_cfg.d_embed, n_outfits=OCP_B * OCP_A * OCP_STEPS,
+        outfit_len=(3, model_cfg.max_outfit_len), max_len=model_cfg.max_outfit_len, seed=0,
+    )
+    source = RawItemSource.synthetic(
+        n_items=data.catalog.n_items, image_size=encoder.image_size, text_len=text_len,
+        vocab=encoder.text_vocab_size,
+    )
+    data_s = time.perf_counter() - t0
+
+    step_check = _ocp_step_check(model_cfg, encoder, source, data.cp_train)
+
+    cfg = CPTrainConfig(
+        n_epochs=1, batch_size=OCP_B, accumulation_steps=OCP_A,
+        checkpoint_dir=str(root / "ckpt"), log_dir=str(root / "logs"),
+    )
+    check(cfg.async_saves, "original-CP saves are not asynchronous")
+    trainer = OriginalCPTrainer(
+        cfg, model_cfg, encoder=encoder, source=source, train_split=data.cp_train,
+        valid_split=data.cp_valid, device="cuda",
+    )
+    frozen = {n: p.detach().clone() for n, p in encoder.named_parameters()
+              if not p.requires_grad}
+    with trainer as t:
+        heads_before = {n: p.detach().clone() for n, p in encoder.named_parameters()
+                        if p.requires_grad}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_ocp_counts()
+        t0 = time.perf_counter()
+        valid = t.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _ocp_counts()
+        run_peak = torch.cuda.max_memory_allocated()
+        check(t.state.step == OCP_STEPS, f"OriginalCPTrainer took {t.state.step} steps")
+        micro = OCP_A * OCP_STEPS
+        evals = -(-len(data.cp_valid) // OCP_B)
+        minilm_ln = sum(isinstance(m, LayerNorm) for m in encoder.text.modules())
+        check(minilm_ln == 13, f"MiniLM has {minilm_ln} LayerNorms")
+        want = {
+            "masked_mha_fwd": (tc.n_layers + model_cfg.transformer.n_layers) * (micro + evals),
+            "masked_mha_bwd": model_cfg.transformer.n_layers * micro,
+            "layernorm": (minilm_ln + _ln_per_forward(model_cfg)) * (micro + evals),
+        }
+        check(counts == want, f"original-CP launches {counts}, expected {want}")
+        changed = [n for n, p in encoder.named_parameters()
+                   if n in frozen and not torch.equal(p.detach(), frozen[n])]
+        check(not changed, f"frozen backbone parameters changed: {changed[:5]}")
+        still = [n for n, p in encoder.named_parameters()
+                 if n in heads_before and torch.equal(p.detach(), heads_before[n])]
+        check(not still, f"encoder heads unchanged by training: {still}")
+        check(all(math.isfinite(v) for v in valid.values()) and "auc" in valid,
+              f"original-CP valid metrics {valid}")
+        timing = _ocp_step_timing(t)
+        live = {k: v.detach().float().cpu() for k, v in t.model.state_dict().items()}
+        live_heads = {k: {a: b.detach().cpu().numpy() for a, b in v.items()}
+                      for k, v in t.checkpoint_params()["enc_heads"].items()}
+        # the final save below holds the state after the timed steps
+    train = _logged(cfg.log_dir, t.model_name, "train")
+    losses = [r["loss"] for r in train] + [valid["loss"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite original-CP loss {losses}")
+    final = t.ckpt.restore("final")
+    check(all(torch.equal(final["params"][k], live[k]) for k in live),
+          "original-CP final checkpoint differs from the live set transformer")
+    check(all(np.array_equal(final["enc_heads"][h][a], live_heads[h][a])
+              for h in live_heads for a in live_heads[h]),
+          "original-CP final checkpoint differs from the live encoder heads")
+    best = t.ckpt.restore("best_auc")
+    check(best["meta"]["epoch"] == 0 and sorted(best["enc_heads"]) == ["fc", "proj"],
+          f"original-CP best_auc checkpoint {best['meta']}")
+    del trainer, t
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "original_cp",
+        "vision": "ResNet-18 at 224x224", "text": f"MiniLM 6 x 384, T={text_len}",
+        "d_embed": model_cfg.d_embed, "n_layers": model_cfg.transformer.n_layers,
+        "head_dim": model_cfg.d_embed // model_cfg.transformer.n_heads,
+        "batch": OCP_B, "accumulation": OCP_A, "steps": OCP_STEPS,
+        "items_per_microbatch": OCP_B * model_cfg.max_outfit_len,
+        "raw_items": data.catalog.n_items, "data_s": data_s,
+        "train_outfits": len(data.cp_train), "valid_outfits": len(data.cp_valid),
+        "step_check": step_check, "run_s": run_s, "run_peak_memory_bytes": run_peak,
+        "launches": counts, "train_loss": train[-1]["loss"], "valid": valid,
+        "checkpoints": "final and best_auc restored; final equals the live state",
+        **timing,
+    })
+    return counts
 
 
 def _reset_tower_counts():
@@ -2029,6 +2406,163 @@ def phase_http():
     return {"masked_mha_fwd": launches, "layernorm": ln_launches}
 
 
+# A child process that runs the CLI as ``python -m outfitx_tpu_torch.cli
+# <argv>`` does, then prints, on a last line of its own, the kernel launches
+# it made, and exits with the CLI's code.
+CLI_WRAPPER = """
+import json, runpy, sys
+sys.argv = ["outfitx_tpu_torch.cli"] + sys.argv[1:]
+code = 0
+try:
+    runpy.run_module("outfitx_tpu_torch.cli", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+from outfitx_tpu_torch.ops.attention import masked_mha
+from outfitx_tpu_torch.ops.attn_block import attn_block
+from outfitx_tpu_torch.ops.layernorm import layer_norm
+from outfitx_tpu_torch.ops.mlp import mlp_fused
+print(json.dumps({"launches": {
+    "masked_mha_fwd": masked_mha.launches, "masked_mha_bwd": masked_mha.bwd_launches,
+    "attn_block": attn_block.launches, "mlp_fused": mlp_fused.launches,
+    "layernorm": layer_norm.launches,
+}}), flush=True)
+sys.exit(code)
+"""
+
+
+def _cli_lines(argv, out: str, err: str, code: int, expect: int):
+    check(code == expect, f"cli {' '.join(argv)} exited {code}, expected {expect}:\n{err[-3000:]}")
+    lines = out.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+
+
+def _cli(argv):
+    """One CLI command in a child process on the card: its JSON line, the
+    kernel launches of that process and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_WRAPPER, *argv], cwd=ROOT, capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S,
+    )
+    result, launches = _cli_lines(argv, proc.stdout, proc.stderr, proc.returncode, 0)
+    return result, launches, time.perf_counter() - t0
+
+
+def _cli_demo(root):
+    """``demo --synthetic --max-age`` in a child process: it answers one CP
+    request, then drains and exits 81."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["demo", "--synthetic", "--port", str(port), "--max-age", str(CLI_DEMO_AGE_S),
+            "--checkpoint-dir", str(root / "no_checkpoints")]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        while True:
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  "demo: the server did not come up")
+            try:
+                if _http(url + "/api/health", timeout=2)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        score = _ok(url + "/api/cp", {"outfit": [10_000, 10_001, 10_002]})["score"]
+        check(0.0 <= score <= 1.0, f"demo CP score {score}")
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    drain, launches = _cli_lines(argv, out, err, proc.returncode, 81)
+    check(drain.get("exit") == 81, f"demo drain line {drain}")
+    return {"cp_score": score, "drain": drain["drain"]}, launches, time.perf_counter() - t0
+
+
+def phase_cli():
+    """The port's command line on the card, each command a child process:
+    ``cp --synthetic``, ``cir`` warm-started from its checkpoint, ``fitb``
+    from the CIR checkpoint, ``export-torch`` (the .pth loads strictly into
+    ``OutfitXModel`` and scores as the checkpoint does), ``pes --shards 2``
+    (both shards read back), ``original-cp --synthetic`` at a small batch
+    and ``demo --synthetic --max-age`` (one request, then exit 81)."""
+    from outfitx_tpu_torch.core.config import OutfitXConfig
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = ROOT / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--synthetic", "--epochs", "1", "--checkpoint-dir", str(root / "ckpt"),
+              "--log-dir", str(root / "logs")]
+    cfg = OutfitXConfig()
+    runs, launches = {}, {}
+
+    def run(name, argv):
+        result, counts, seconds = _cli(argv)
+        runs[name] = {"argv": argv, "seconds": seconds, "result": result, "launches": counts}
+        launches[name] = counts
+        return result
+
+    cp = run("cp", ["cp", *common, "--batch-size", "256"])
+    check(math.isfinite(cp["loss"]) and 0.0 <= cp["auc"] <= 1.0, f"cli cp {cp}")
+    cp_final = root / "ckpt" / f"{cfg.model_name}-cp" / "final"
+    cir = run("cir", ["cir", *common, "--batch-size", "256",
+                      "--warm-start-from", str(cp_final)])
+    check(math.isfinite(cir["loss"]) and "recall@1" in cir, f"cli cir {cir}")
+    cir_final = root / "ckpt" / f"{cfg.model_name}-cir" / "final"
+    fitb = run("fitb", ["fitb", *common, "--checkpoint-from", str(cir_final)])
+    check(0.0 <= fitb["accuracy"] <= 1.0, f"cli fitb {fitb}")
+
+    pth = root / "export" / "cp.pth"
+    exported = run("export-torch", ["export-torch", "--params", str(cp_final), "--out", str(pth)])
+    check(exported == {"exported": str(pth)}, f"cli export-torch {exported}")
+    from_pth = OutfitXModel(cfg, device="cuda")
+    from_pth.load_state_dict(torch.load(pth, weights_only=True)["model"], strict=True)
+    from_ckpt = OutfitXModel(cfg, device="cuda")
+    from_ckpt.load_state_dict(CheckpointManager(root, "x").restore(cp_final)["params"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    emb = torch.randn((64, 16, cfg.d_embed), generator=gen, device="cuda")
+    mask = torch.arange(16, device="cuda")[None, :] >= torch.randint(
+        2, 17, (64, 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        a, b = from_pth.cp_forward(emb, mask), from_ckpt.cp_forward(emb, mask)
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+          "the exported .pth scores otherwise than its checkpoint")
+    del from_pth, from_ckpt, emb
+
+    pes_dir = root / "pes"
+    pes = run("pes", ["pes", *common, "--shards", "2", "--synthetic-items", "256",
+                      "--batch-size", "128", "--output-dir", str(pes_dir)])
+    check((pes["items"], pes["shards"], len(pes["child_max_rss_mb"])) == (256, 2, 2),
+          f"cli pes {pes}")
+    ids, emb = _read_shards(pes_dir, cfg.model_name, "embedding_subset_", 2)
+    check(sorted(ids) == [10_000 + i for i in range(256)], "cli pes shard ids")
+    check(emb.shape == (256, cfg.d_embed) and bool(np.isfinite(emb).all()),
+          f"cli pes embeddings {emb.shape}")
+
+    ocp = run("original-cp", ["original-cp", *common, "--batch-size", "16", "--accum", "2"])
+    check(math.isfinite(ocp["loss"]) and 0.0 <= ocp["auc"] <= 1.0, f"cli original-cp {ocp}")
+
+    demo, counts, seconds = _cli_demo(root)
+    runs["demo"] = {"seconds": seconds, "result": demo, "launches": counts}
+    launches["demo"] = counts
+    for name in ("cp", "cir", "original-cp"):
+        check(launches[name]["masked_mha_bwd"] > 0, f"cli {name}: no backward launch")
+    for name in ("cp", "cir", "fitb", "original-cp", "demo"):
+        check(launches[name]["masked_mha_fwd"] > 0 and launches[name]["layernorm"] > 0,
+              f"cli {name}: launches {launches[name]}")
+    emit({"phase": "cli", "commands": runs})
+    total = Counter()
+    for counts in launches.values():
+        total.update(counts)
+    return dict(total)
+
+
 def _big_catalog(n, d, seed):
     """A synthetic catalog of ``n`` items at width ``d`` with the structure
     of real embeddings: points of a 64-dimensional subspace plus small
@@ -2429,6 +2963,7 @@ def phase_timing(engine, q8_engine):
             "bound_by": bound_by,
         }
     bwd = {batch: _bwd_timing((batch, 16, 17, 96)) for batch in (8, TRAIN_B)}
+    bwd["original_cp"] = _bwd_timing(OCP_BWD_SHAPES[0])
 
     cfg = engine.model_cfg
     b, l, d = 4096, cfg.max_outfit_len, cfg.d_embed
@@ -2499,6 +3034,9 @@ def main() -> int:
     precompute_launches = phase_precompute()
     http_launches = phase_http()
     phase_retrieval()
+    ocp_launches = phase_original_cp()
+    torch.cuda.empty_cache()  # the CLI's child processes share the card
+    cli_launches = phase_cli()
     fwd, bwd, towers, layernorm, host = phase_timing(engine, q8_engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
@@ -2509,9 +3047,12 @@ def main() -> int:
             "at_minilm_text_tower": towers["masked_mha_fwd_minilm_text_tower"],
             "at_resnet_sbert_set_transformer":
                 towers["masked_mha_fwd_resnet_sbert_set_transformer"],
+            "at_original_cp_minilm": towers["masked_mha_fwd_original_cp_minilm"],
+            "at_original_cp_set_transformer":
+                towers["masked_mha_fwd_original_cp_set_transformer"],
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
-            "at_b8": bwd[8],
+            "at_b8": bwd[8], "at_original_cp_set_transformer": bwd["original_cp"],
         }),
         ("attn_block", "outfitx_tpu/ops/attn_block.py:41", towers["attn_block"], {}),
         ("mlp_fused", "outfitx_tpu/ops/mlp.py:38", towers["mlp_fused_vision"], {
@@ -2522,12 +3063,14 @@ def main() -> int:
             "at_vision_tower": layernorm["401408x768"],
             "at_text_tower": layernorm["131072x768"],
             "at_minilm_text_tower": layernorm["131072x384"],
+            "at_original_cp_minilm": layernorm["89600x384"],
+            "at_original_cp_set_transformer": layernorm["5950x128"],
             "host_us_per_call_at_serving_bucket": host,
         }),
     ]
     by_path = {
-        **serve_launches, "train": train_launches, **precompute_launches,
-        "http": http_launches,
+        **serve_launches, **train_launches, **precompute_launches,
+        "http": http_launches, "original_cp": ocp_launches,
     }
     for name, *_ in rows:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()
@@ -2543,6 +3086,9 @@ def main() -> int:
             "launches_by_path": {
                 path: counts.get(name, 0) for path, counts in by_path.items()
             },
+            # the CLI phase's child processes (pes's slices run in
+            # grandchildren and are not counted)
+            "launches_cli_children": cli_launches.get(name, 0),
             "max_abs_err": max_err[name],
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

@@ -1,0 +1,6 @@
+import sys
+
+from outfitx_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,8 +6,7 @@ transformer, the top-level ``OutfitXConfig``, the optimizer, the CP, CIR
 and FITB training configs and the precompute sweep's config. ``MeshConfig``
 and the training configs' ``mesh`` field wait for the parallelism slice: the
 trainers run on one card. The JAX package's ``remat`` options are not ported
-(an 80 GB card holds the activations at the training envelope), nor
-``async_saves`` (saves are synchronous).
+(an 80 GB card holds the activations at the training envelope).
 """
 
 from __future__ import annotations
@@ -133,6 +132,11 @@ class TrainConfig:
     # >0: save a rolling 'latest' checkpoint (params + optimizer state +
     # epoch) every N epochs, for resume('latest').
     save_every_epochs: int = 0
+    # Mid-run saves (best-metric, rolling latest) copy the state to the host
+    # on the training loop and leave the file writes to a writer thread
+    # (train/checkpoint.py save_async); the final save and every restore
+    # wait for the queue first. False makes every save synchronous.
+    async_saves: bool = True
     log_every_steps: int = 0  # >0: per-step train loss to the metrics JSONL
 
 
@@ -162,8 +166,7 @@ class CIRTrainConfig(TrainConfig):
 
 @dataclasses.dataclass(frozen=True)
 class FITBTrainConfig(TrainConfig):
-    """Fill-in-the-blank evaluation (test only; its trainer comes with a
-    later slice)."""
+    """Fill-in-the-blank evaluation (test only)."""
 
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=lambda: OptimizerConfig(learning_rate=4e-5)

@@ -164,6 +164,19 @@ class Catalog:
         return cls.from_columns(metadata, emb_dict, category_names)
 
     @classmethod
+    def from_metadata_only(cls, dataset_dir: str | pathlib.Path) -> "Catalog":
+        """The catalog without precomputed embeddings, for the original-CP
+        trainer, which encodes raw items inside its train step: a 1-wide
+        zero table keeps the row and pad-row contract."""
+        dataset_dir = pathlib.Path(dataset_dir)
+        with open(dataset_dir / "item_metadata.json", encoding="utf-8") as f:
+            metadata = json.load(f)
+        with open(dataset_dir / "categories.json", encoding="utf-8") as f:
+            category_names = {int(k): v for k, v in json.load(f).items()}
+        emb_dict = {int(m["item_id"]): np.zeros(1, dtype=np.float32) for m in metadata}
+        return cls.from_columns(metadata, emb_dict, category_names)
+
+    @classmethod
     def from_columns(
         cls,
         metadata: List[dict],

@@ -53,11 +53,18 @@ def load_image_uint8(path_or_img, size: int) -> np.ndarray:
 def make_normalizer(encoder_type: str):
     """(B, 3, H, W) uint8 -> float32 normalised, on the images' device."""
     mean, std = STATS[encoder_type]
+    # Made once a device: a tensor made from host values on the card is a
+    # copy that waits for the card's queue to drain.
+    stats = {}
 
     def normalize(x_uint8: torch.Tensor) -> torch.Tensor:
         dev = x_uint8.device
-        mean_t = torch.tensor(mean, dtype=torch.float32, device=dev).view(1, 3, 1, 1)
-        std_t = torch.tensor(std, dtype=torch.float32, device=dev).view(1, 3, 1, 1)
+        if dev not in stats:
+            stats[dev] = tuple(
+                torch.tensor(v, dtype=torch.float32, device=dev).view(1, 3, 1, 1)
+                for v in (mean, std)
+            )
+        mean_t, std_t = stats[dev]
         return (x_uint8.to(torch.float32) / 255.0 - mean_t) / std_t
 
     return normalize

@@ -3,7 +3,11 @@
 A context manager with ``run()``, abstract hooks and the checkpoint and
 metric gateways. There is no mesh: a trainer runs on one device, the card
 by default (``device="cuda"``, which raises without one) or the CPU when
-asked. Checkpoint saves are synchronous.
+asked. Mid-run saves (best metrics, the rolling ``latest``) go through the
+checkpoint writer thread when ``cfg.async_saves``; the final save is
+synchronous, after the queue is written. ``profile_dir`` set, epoch 1 (the
+second; the first pays the kernels' builds) is traced by ``torch.profiler``
+into a Chrome trace there.
 
 Usage::
 
@@ -55,6 +59,7 @@ class Trainer(abc.ABC):
         self.ckpt: Optional[CheckpointManager] = None
         self.best = BestMetricTracker(**self.best_metrics())
         self.metrics_log: Optional[MetricsLogger] = None
+        self.profile_dir: Optional[str] = None  # set to trace epoch 1
 
     # ------------------------------------------------------------ hooks --
     @property
@@ -122,10 +127,11 @@ class Trainer(abc.ABC):
             result = None
             for epoch in range(self.epoch, self.cfg.n_epochs):
                 self.epoch = epoch
-                t0 = time.perf_counter()
-                train_metrics = dict(self.train_epoch(epoch) or {})
-                valid_metrics = self.valid_epoch(epoch)
-                dt = time.perf_counter() - t0
+                with self._profiled(epoch):
+                    t0 = time.perf_counter()
+                    train_metrics = dict(self.train_epoch(epoch) or {})
+                    valid_metrics = self.valid_epoch(epoch)
+                    dt = time.perf_counter() - t0
                 if train_metrics:
                     train_metrics["epoch_seconds"] = dt
                 self.log_metrics("train", epoch, train_metrics)
@@ -139,6 +145,25 @@ class Trainer(abc.ABC):
             self.log_metrics("test", self.epoch, metrics)
             return metrics
         return self.custom_task()
+
+    @contextlib.contextmanager
+    def _profiled(self, epoch: int):
+        """A torch.profiler trace of epoch 1 into ``profile_dir``."""
+        if self.profile_dir is None or epoch != 1:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+        out = pathlib.Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"{self.model_name}_epoch{epoch}.trace.json"
+        prof.export_chrome_trace(str(path))
+        self.log(f"profiler trace written to {path}")
 
     # ---------------------------------------------------------- logging --
     def log(self, msg: str, level: int = logging.INFO) -> None:
@@ -155,11 +180,24 @@ class Trainer(abc.ABC):
             self.metrics_log.log(split, epoch, metrics)
 
     # ------------------------------------------------------ checkpoints --
-    def _save(self, tag: str, *, with_optimizer: bool, **kwargs) -> None:
+    def checkpoint_params(self) -> Dict[str, Any]:
+        """What a checkpoint holds of the parameters, as
+        ``CheckpointManager.save`` takes it."""
+        return {"params": self.state.model.state_dict()}
+
+    def load_checkpoint_params(self, payload: Dict[str, Any]) -> None:
+        """The inverse of ``checkpoint_params``, from ``restore``'s
+        payload."""
+        self.state.model.load_state_dict(payload["params"])
+
+    def _save(self, tag: str, *, with_optimizer: bool, sync: bool = False, **kwargs) -> None:
+        """Save through the writer thread when ``cfg.async_saves``, unless
+        ``sync``."""
         model = self.state.model
-        self.ckpt.save(
+        save = self.ckpt.save if sync or not self.cfg.async_saves else self.ckpt.save_async
+        save(
             tag,
-            params=model.state_dict(),
+            **self.checkpoint_params(),
             opt_state=(
                 optimizer_tree(model, self.state.optimizer) if with_optimizer else None
             ),
@@ -189,10 +227,9 @@ class Trainer(abc.ABC):
         """Restore parameters (and optimizer state, step and epoch when
         saved) and continue from the next epoch."""
         payload = self.ckpt.restore(tag_or_path)
-        model = self.state.model
-        model.load_state_dict(payload["params"])
+        self.load_checkpoint_params(payload)
         if payload["opt_state"] is not None:
-            load_optimizer_tree(model, self.state.optimizer, payload["opt_state"])
+            load_optimizer_tree(self.state.model, self.state.optimizer, payload["opt_state"])
             self.state.step = int(payload["meta"].get("step", 0))
         self.epoch = int(payload["meta"].get("epoch", -1)) + 1
         for name, value in payload["meta"].get("best", {}).items():
@@ -207,13 +244,25 @@ class Trainer(abc.ABC):
 
     def __exit__(self, exc_type, exc, tb) -> None:
         try:
+            # Queued saves reach the disk first, even on an exception. A
+            # failed one does not stop the final save (the live state is
+            # sound); it is raised after it.
+            pending_err = None
+            if self.ckpt is not None:
+                try:
+                    self.ckpt.wait()
+                except RuntimeError as e:
+                    if exc_type is None:
+                        pending_err = e
             if (
                 exc_type is None
                 and self.run_mode == "train-valid"
                 and self.state is not None
             ):
-                self._save("final", with_optimizer=True, epoch=self.epoch)
+                self._save("final", with_optimizer=True, sync=True, epoch=self.epoch)
                 self.log("saved final checkpoint")
+            if pending_err is not None:
+                raise pending_err
         finally:
             if self.metrics_log is not None:
                 self.metrics_log.close()

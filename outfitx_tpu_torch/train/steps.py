@@ -7,12 +7,14 @@ inside the step. A train step takes a super-batch with a leading
 accumulation axis A: it runs forward and backward on each microbatch, sums
 the losses and gradients, scales both by 1/A (as the JAX package's
 ``_accumulate``), then clips and takes one AdamW step. Each microbatch draws
-its dropout masks from a fresh stream for (step, microbatch).
+its dropout masks from a fresh stream for (step, microbatch). The
+original-CP step takes its microbatches one at a time instead, raw items
+that its model encodes before the set transformer.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Iterator
 
 import torch
 
@@ -30,27 +32,31 @@ def gather(catalog: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return out.reshape(*rows.shape, catalog.shape[-1])
 
 
-def _accumulate(state: TrainState, loss_fn, batch: Batch):
-    """Forward and backward over the A microbatches of ``batch``; leaves the
-    mean gradient in each ``p.grad`` and returns (mean loss, per-microbatch
-    aux outputs)."""
+def _accumulate(state: TrainState, loss_fn, microbatches: Iterable[Batch]):
+    """Forward and backward over ``microbatches``; leaves the mean gradient
+    in each ``p.grad`` and returns (mean loss, per-microbatch aux
+    outputs)."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
-    a = next(iter(batch.values())).shape[0]
     total = None
     aux = []
-    for i in range(a):
-        mb = {k: v[i] for k, v in batch.items()}
+    for i, mb in enumerate(microbatches):
         loss, out = loss_fn(model, mb, state.dropout_generator(i))
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
         aux.append(out)
-    scale = 1.0 / a
+    scale = 1.0 / len(aux)
     for p in state.optimizer.params:
         if p.grad is not None:
             p.grad.mul_(scale)
     return total * scale, aux
+
+
+def _split(batch: Batch) -> Iterator[Batch]:
+    """The microbatches of a super-batch with a leading accumulation axis."""
+    a = next(iter(batch.values())).shape[0]
+    return ({k: v[i] for k, v in batch.items()} for i in range(a))
 
 
 def _apply(state: TrainState) -> None:
@@ -77,7 +83,7 @@ def cp_train_step(
         loss = focal_loss(scores, mb["label"], alpha=alpha, gamma=gamma)
         return loss, scores.detach()
 
-    loss, scores = _accumulate(state, loss_fn, batch)
+    loss, scores = _accumulate(state, loss_fn, _split(batch))
     _apply(state)
     return {"loss": loss, "scores": torch.stack(scores), "labels": batch["label"]}
 
@@ -105,9 +111,41 @@ def cir_train_step(
         negs = gather(catalog, mb["neg_idx"])  # (B, K, D)
         return set_wise_ranking_loss(pos, pred, negs, mb["neg_mask"], margin=margin), None
 
-    loss, _ = _accumulate(state, loss_fn, batch)
+    loss, _ = _accumulate(state, loss_fn, _split(batch))
     _apply(state)
     return {"loss": loss}
+
+
+def original_cp_train_step(
+    state: TrainState,
+    microbatches: Iterable[Batch],
+    *,
+    alpha: float = 0.75,
+    gamma: float = 2.0,
+) -> Dict[str, torch.Tensor]:
+    """Original-CP train step: ``state.model`` (``OriginalCPModel``) runs
+    the item encoder over each microbatch's raw items and the set
+    transformer over their embeddings. Each microbatch: 'images'
+    (B,L,3,S,S) uint8, 'input_ids' and 'attn' (B,L,T) int32, 'mask' (B,L)
+    bool, 'label' (B,) float32, on the device. Returns {'loss', 'scores'
+    (A,B)}, on the device."""
+
+    def loss_fn(net, mb, gen):
+        scores = net.cp_forward(mb, generator=gen)
+        loss = focal_loss(scores, mb["label"], alpha=alpha, gamma=gamma)
+        return loss, scores.detach()
+
+    loss, scores = _accumulate(state, loss_fn, microbatches)
+    _apply(state)
+    return {"loss": loss, "scores": torch.stack(scores)}
+
+
+@torch.no_grad()
+def original_cp_eval_step(net, batch: Batch) -> torch.Tensor:
+    """CP logits (B,) of raw items in eval mode (batch as one microbatch
+    of ``original_cp_train_step``, without 'label')."""
+    net.eval()
+    return net.cp_forward(batch)
 
 
 @torch.no_grad()

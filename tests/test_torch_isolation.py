@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing in ``outfitx_tpu_torch`` or in
-``chip_smoke.py`` imports JAX, the JAX package or ``safetensors``."""
+``chip_smoke.py`` imports JAX, the JAX package, ``safetensors`` or
+``click`` (the port's CLI is on argparse)."""
 
 import ast
 import pathlib
@@ -9,7 +10,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "outfitx_tpu", "safetensors"}
+FORBIDDEN = {
+    "jax", "jaxlib", "flax", "optax", "orbax", "outfitx_tpu", "safetensors", "click",
+}
 PORT_FILES = sorted((ROOT / "outfitx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,6 +45,9 @@ def test_port_files_found():
         "serve/live_update.py", "serve/openapi.py", "serve/stats.py", "serve/ui.py",
         "models/quantized.py", "models/convert.py", "models/pretrained.py",
         "models/towers/resnet.py", "models/towers/minilm.py", "utils/__init__.py",
+        "cli/__init__.py", "cli/__main__.py", "cli/main.py", "data/types.py",
+        "data/processors.py", "models/export_torch.py", "train/fitb_trainer.py",
+        "train/original_cp_trainer.py",
     ):
         assert module in scanned, module
 

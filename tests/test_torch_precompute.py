@@ -146,7 +146,7 @@ def test_configs_match_the_jax_defaults():
 
     assert dataclasses.asdict(PrecomputeConfig()) == {
         k: v for k, v in dataclasses.asdict(JaxPrecomputeConfig()).items()
-        if k not in ("mesh", "async_saves")
+        if k != "mesh"
     }
     for enc_type in ("clip", "siglip", "resnet_sbert"):
         assert dataclasses.asdict(ItemEncoderConfig.for_type(enc_type)) == (
