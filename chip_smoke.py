@@ -105,7 +105,29 @@ Phases, each printing one JSON line:
             checkpoint), ``pes --shards 2`` (shards read back),
             ``original-cp`` at a small batch, ``demo --max-age`` (one
             request, then exit 81), each with the launches it made;
-11. timing  kernel, plain version and the PyTorch library call at the
+11. parallel  the device mesh on the one card (ranks and shards share it:
+            no time here measures scaling): the retrieval phase's 300,001
+            rows row-sharded over 1, 2 and 4 shards (2 and 4 pad them) by
+            ``retrieve_sharded`` and ``retrieve_quantized_sharded``, equal
+            to ``retrieve`` and ``retrieve_quantized`` (indices; distances
+            to 1e-5 relative), with ms each; the engine at full width on a
+            4-shard mesh, bfloat16 and int8 catalogs, answering CP, CIR,
+            FITB and similar items as the one-device engine does, before
+            and after the same updates and appends, with exact launch
+            counts (6 attention and 12 LayerNorm a forward); the CP step at
+            B=768 x A=1 in 2-rank gloo groups (``chip_smoke.py
+            --parallel-worker``, CUDA tensors) at mesh (1, 2), (2, 1) and
+            (2, 1) with FSDP (on a machine with several cards, NCCL with
+            a card a rank, and every mesh of all the cards too): the CP
+            and CIR steps in float32 against the one-rank step (loss,
+            whole gradients, and to 1e-4 the parameters whose one-rank
+            gradient is not within the gradient check's tolerance of 0),
+            then in bfloat16 the launches a rank and their shapes
+            ((768,8,17,96) under model=2, (384,16,17,96) under data=2), the
+            collective bytes a step, step ms and peak memory a rank; and a
+            one-rank NCCL group (the launcher's environment) training the
+            CP trainer at B=3072 x A=4 for 3 steps, with its step time;
+12. timing  kernel, plain version and the PyTorch library call at the
             serving bucket (B=8), the training and throughput shapes and
             the towers' shapes at batch 2048 (attention also at the CLIP
             towers' L=50 and causal L=77; the bytes that attn_block and
@@ -121,7 +143,9 @@ Phases, each printing one JSON line:
             MiniLM's (2048,12,64,32) and at Dh=8, layernorm at 384; the
             original-CP path's attention (5600,12,16,32) and
             (350,16,17,8) forward and backward, layernorm at 89,600 x 384
-            and 5,950 x 128.
+            and 5,950 x 128; the meshed step's shapes a rank, attention
+            (768,8,17,96) and (384,16,17,96) forward and backward,
+            layernorm at 13,056 and 6,528 rows.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -179,7 +203,12 @@ F32_SUM_TOL = 5e-5
 PRECOMPUTE_COS_MIN = 0.99
 FUSED_COS_MIN = 0.999
 
-KERNEL_SHAPES = [(8, 16, 17, 96), (4096, 16, 17, 96), (3, 4, 9, 16)]
+# The meshed train step's shapes a rank (B=768): 8 heads under model=2,
+# 384 rows under data=2.
+PARALLEL_MHA_SHAPES = {"tp": (768, 8, 17, 96), "dp": (384, 16, 17, 96)}
+KERNEL_SHAPES = [(8, 16, 17, 96), (4096, 16, 17, 96), (3, 4, 9, 16)] + list(
+    PARALLEL_MHA_SHAPES.values()
+)
 # The forward at tower lengths: SigLIP ViT-B/16 (196 patches), CLIP ViT-B/32
 # (50 tokens), CLIP text (77, causal), and the kernel's largest L and Dh.
 TOWER_MHA_SHAPES = [
@@ -263,12 +292,13 @@ LAYERNORM_SHAPES = [
     ((136, 1536), 1e-5), ((69632, 1536), 1e-5), ((401408, 768), 1e-6),
     ((1000, 96), 1e-5), ((257, 100), 1e-5), ((33, 1531), 1e-5),
     ((8, 17, 1536), 1e-5), ((5, 4096), 1e-5), ((131072, 384), 1e-12),
+    ((13056, 1536), 1e-5), ((6528, 1536), 1e-5),  # a meshed step's rows a rank
 ]
 # The bound shapes of the timing phase: B=4096 and B=3072 set-transformer
 # rows, the vision and the text tower's rows at batch 2048, MiniLM's rows.
 LAYERNORM_TIMING_SHAPES = [
     (69632, 1536), (52224, 1536), (401408, 768), (131072, 768), (136, 1536),
-    (131072, 384), (89600, 384), (5950, 128),
+    (131072, 384), (89600, 384), (5950, 128), (13056, 1536), (6528, 1536),
 ]
 LAYERNORM_EPS = {1536: 1e-5, 768: 1e-6, 384: 1e-12, 128: 1e-5}
 KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"]
@@ -1003,8 +1033,9 @@ def _expected_forwards(engine, reqs):
     def chunks(n):
         return -(-n // bucket)
 
+    pools = engine.pools.pools if engine.pools is not None else {}
     pooled = sum(
-        int(engine.catalog.category_id[engine.lookup_row(t)]) in engine.pools.pools
+        int(engine.catalog.category_id[engine.lookup_row(t)]) in pools
         for _, t in cir_batch
     )
     return (
@@ -1440,7 +1471,7 @@ def _fitb_run(cfg, data, cir_trainer, root):
     }, counts
 
 
-def _step_timing(cp_trainer):
+def _step_timing(cp_trainer, profile: bool = True):
     """The CP train step at B=TRAIN_B x A=TRAIN_A: host clock around
     synchronised steps, and a profile of one step by kernel."""
     from outfitx_tpu_torch.train.steps import cp_train_step
@@ -1464,13 +1495,15 @@ def _step_timing(cp_trainer):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.mean(times))
-    return {
+    out = {
         "train_step_ms": ms,
         "train_step_peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "train_step_ms_each": times,
         "trained_outfits_per_s": TRAIN_B * TRAIN_A / (ms / 1e3),
-        "train_step_profile": profile_call(step, top=14),
     }
+    if profile:
+        out["train_step_profile"] = profile_call(step, top=14)
+    return out
 
 
 def phase_train():
@@ -2945,8 +2978,9 @@ def phase_timing(engine, q8_engine):
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
     per_shape = {}
-    for batch in (8, TRAIN_B, 4096):
-        shape = (batch, 16, 17, 96)
+    for batch, shape in [(b, (b, 16, 17, 96)) for b in (8, TRAIN_B, 4096)] + list(
+        PARALLEL_MHA_SHAPES.items()
+    ):
         q, k, v, pad = attention_inputs(shape, torch.bfloat16, seed=7)
         keep = ~pad[:, None, None, :]
         iters = 200 if shape[0] <= 64 else 20
@@ -2964,6 +2998,8 @@ def phase_timing(engine, q8_engine):
         }
     bwd = {batch: _bwd_timing((batch, 16, 17, 96)) for batch in (8, TRAIN_B)}
     bwd["original_cp"] = _bwd_timing(OCP_BWD_SHAPES[0])
+    for key, shape in PARALLEL_MHA_SHAPES.items():
+        bwd[key] = _bwd_timing(shape)
 
     cfg = engine.model_cfg
     b, l, d = 4096, cfg.max_outfit_len, cfg.d_embed
@@ -3015,12 +3051,525 @@ def phase_timing(engine, q8_engine):
     return per_shape, bwd, towers, layernorm, host
 
 
+# ----------------------------------------------------------------- parallel --
+# Sharded retrieval: the retrieval phase's catalog (300,000 items and the PAD
+# row) over N shards on the one card; N = 2 and 4 pad its 300,001 rows.
+SHARD_COUNTS = (1, 2, 4)
+# Shard-sized products round the cross term elsewhere: distances agree to
+# this share of |q|^2 + |p|^2 (the scale of their rounding), and of the
+# distance (at least 1) in the engine's answers.
+SHARD_DIST_RTOL = 1e-5
+MESH_ENGINE_SHARDS = 4
+MESH_SPARE_ROWS = 64
+# Meshed training: one microbatch of the envelope (the collectives go
+# through host memory under gloo on one card), 2 ranks a mesh.
+PAR_B = 768
+PAR_MESHES = [(1, 2, False), (2, 1, False), (2, 1, True)]
+PAR_TOL = 1e-4  # float32 meshed step against the one-rank step
+PAR_TIMED_STEPS = 3
+PAR_CHILD_TIMEOUT_S = 300
+
+
+def _shard_retrieval(cat, queries, n, k):
+    """Top-k by retrieve_sharded / retrieve_quantized_sharded at each shard
+    count against retrieve / retrieve_quantized on the same rows."""
+    from outfitx_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from outfitx_tpu_torch.ops.quantization import quantize_catalog, retrieve_quantized
+    from outfitx_tpu_torch.ops.retrieval import retrieve
+    from outfitx_tpu_torch.ops.retrieval_sharded import (
+        pad_rows_to_shards,
+        retrieve_quantized_sharded,
+        retrieve_sharded,
+        shard_quantized,
+        shard_rows,
+    )
+
+    qc_single = quantize_catalog(cat, n_rows=n)
+    scale = 2.0 * (queries.float() ** 2).sum(dim=-1, keepdim=True)
+    want = retrieve(queries, cat[:n], k)
+    want_q = retrieve_quantized(queries, qc_single, k)
+    out = {
+        "single_ms": cuda_ms(lambda: retrieve(queries, cat[:n], k), 10),
+        "single_int8_ms": cuda_ms(lambda: retrieve_quantized(queries, qc_single, k), 10),
+    }
+    del qc_single
+    for n_shards in SHARD_COUNTS:
+        mesh = make_mesh(MeshSpec(data=n_shards), devices=[torch.device("cuda", 0)] * n_shards)
+        rows = pad_rows_to_shards(cat.shape[0], n_shards)
+        padded = torch.cat([cat, cat.new_zeros((rows - cat.shape[0], cat.shape[1]))])
+        sharded = shard_rows(padded, mesh)
+        qc = shard_quantized(quantize_catalog(padded), mesh)
+        del padded
+        case = {"shards": n_shards, "rows": rows}
+        for tag, fn, ref in (
+            ("dense", lambda: retrieve_sharded(queries, sharded, k, mesh=mesh, n_rows=n), want),
+            ("int8", lambda: retrieve_quantized_sharded(queries, qc, k, mesh=mesh, n_rows=n), want_q),
+        ):
+            d2, idx = fn()
+            same = bool(torch.equal(idx, ref[1]))
+            # d2 = |q|^2 + |p|^2 - 2 q.p: its rounding scales with the norms
+            rel = float(((d2 - ref[0]).abs() / (ref[0].abs() + scale)).max())
+            check(same, f"sharded {tag} top-{k} indices differ at {n_shards} shards")
+            check(rel <= SHARD_DIST_RTOL, f"sharded {tag} distances off by {rel} at {n_shards}")
+            check(int(idx.max()) < n, f"a padded row won at {n_shards} shards")
+            case[f"{tag}_ms"] = cuda_ms(fn, 10)
+            case[f"{tag}_dist_max_rel_err"] = rel
+        out[f"shards_{n_shards}"] = case
+        del sharded, qc
+        torch.cuda.empty_cache()
+    return out
+
+
+def _synthetic_engine(cfg, **kw):
+    """The serving demo's synthetic engine (2,000 items, pools of 1,000,
+    random weights from seed 0), category 0's pool dropped so that its
+    targets take the whole-catalog route."""
+    from outfitx_tpu_torch.data.sampler import CandidatePools
+    from outfitx_tpu_torch.data.synthetic import make_synthetic
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.serve.engine import ServingEngine
+
+    data = make_synthetic(
+        n_items=2000, d_embed=cfg.d_embed, n_outfits=256, max_len=cfg.max_outfit_len
+    )
+    sd = OutfitXModel(cfg, device="cuda", seed=0).state_dict()
+    pools = None
+    if not kw.get("quantized"):
+        pools = CandidatePools.build(data.catalog, data.cir_valid, pool_size=1000, threshold=1)
+        pools.pools.pop(0)
+    return ServingEngine(
+        model_cfg=cfg, catalog=data.catalog, cp_params=sd, cir_params=sd, pools=pools,
+        device="cuda", spare_capacity=MESH_SPARE_ROWS, **kw,
+    )
+
+
+def _same_answers(got, want, what):
+    """Equal CP scores and FITB picks; equal CIR and similar-item lists, but
+    for a swap of two items whose distances tie within SHARD_DIST_RTOL."""
+    check(got["cp"] == want["cp"] and list(got["cp_batch"]) == list(want["cp_batch"]),
+          f"{what}: CP scores differ")
+    check(got["fitb"] == want["fitb"], f"{what}: FITB picks differ")
+    worst = 0.0
+    for key in ("cir", "cir_batch", "sim"):
+        for g, w in zip(got[key], want[key]):
+            gs, ws = [x["score"] for x in g], [x["score"] for x in w]
+            rel = float(np.max(np.abs(np.subtract(gs, ws)) / np.maximum(np.abs(ws), 1.0)))
+            worst = max(worst, rel)
+            check(rel <= SHARD_DIST_RTOL, f"{what}: {key} distances off by {rel}")
+            for a, b, sa, sb in zip(g, w, gs, ws):
+                check(a["item_id"] == b["item_id"] or abs(sa - sb) <= SHARD_DIST_RTOL * max(abs(sb), 1.0),
+                      f"{what}: {key} answers differ beyond a tie")
+    return worst
+
+
+def _mesh_engine_check(cfg, catalog_kw):
+    """The engine on a 4-shard mesh of the one card against the one-device
+    engine: answers, then the same updates and appends, then answers."""
+    from outfitx_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+
+    mesh = make_mesh(
+        MeshSpec(data=MESH_ENGINE_SHARDS), devices=[torch.device("cuda", 0)] * MESH_ENGINE_SHARDS
+    )
+    single = _synthetic_engine(cfg, **catalog_kw)
+    meshed = _synthetic_engine(cfg, mesh=mesh, **catalog_kw)
+    check(len(meshed.catalog_dev.shards) == MESH_ENGINE_SHARDS, "catalog not sharded")
+    reqs = _requests(single.catalog, np.random.default_rng(5))
+    want = _serve(single, reqs)
+    torch.cuda.synchronize()
+    masked_mha.launches = layer_norm.launches = 0
+    t0 = time.perf_counter()
+    got = _serve(meshed, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {"masked_mha_fwd": masked_mha.launches, "layernorm": layer_norm.launches}
+    forwards = _expected_forwards(meshed, reqs)
+    want_launches = {
+        "masked_mha_fwd": cfg.transformer.n_layers * forwards,
+        "layernorm": _ln_per_forward(cfg) * forwards,
+    }
+    check(launches == want_launches, f"mesh engine launches {launches}, expected {want_launches}")
+    before = _same_answers(got, want, "mesh engine")
+    rng = np.random.default_rng(6)
+    ids = [int(i) for i in rng.choice(single.catalog.item_ids[: single.catalog.n_items], 40, replace=False)]
+    vals = rng.normal(size=(len(ids), cfg.d_embed)).astype(np.float32)
+    new_ids = [9_900_001 + i for i in range(8)]
+    new = rng.normal(size=(len(new_ids), cfg.d_embed)).astype(np.float32)
+    for eng in (single, meshed):
+        eng.update_items(ids, vals)
+        eng.add_items(new_ids, new, category_ids=[i % 3 for i in range(len(new_ids))])
+    reqs = _requests(single.catalog, np.random.default_rng(7))
+    reqs = reqs[:5] + ([new_ids[0], ids[0]] + reqs[5],)
+    after = _same_answers(_serve(meshed, reqs), _serve(single, reqs), "mesh engine after updates")
+    rows = [meshed.lookup_row(i) for i in ids + new_ids]
+    stored = meshed.catalog_dev[torch.as_tensor(rows, device="cuda")].float().cpu()
+    check(torch.equal(stored, single.catalog_dev[torch.as_tensor(rows, device="cuda")].float().cpu()),
+          "updated rows differ between the mesh and one-device engines")
+    out = {
+        "shards": MESH_ENGINE_SHARDS, "catalog_rows": int(meshed.catalog_dev.shape[0]),
+        "requests_s": serve_s, "forwards": forwards, **{f"{k}_launches": v for k, v in launches.items()},
+        "dist_max_rel_err_before_updates": before, "dist_max_rel_err_after_updates": after,
+        "updated_rows": len(ids), "appended_items": len(new_ids),
+    }
+    del single, meshed
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(task, world, mesh=None):
+    """``chip_smoke.py --parallel-worker`` in ``world`` child processes with
+    the launcher's environment; each rank's last stdout line (JSON). Their
+    output goes to files (a full pipe would stall a rank, and its group with
+    it). When a rank fails the others, blocked in a collective, are killed;
+    the failed ranks' stderr goes into the error."""
+    import os
+
+    port = _free_port()
+    arg = json.dumps({"task": task, "mesh": mesh})
+    logs = ROOT / "build" / "chip_smoke" / "ranks"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, files = [], []
+    try:
+        for r in range(world):
+            env = dict(
+                os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port),
+            )
+            out, err = (open(logs / f"{task}_{r}.{ext}", "w+") for ext in ("out", "err"))
+            files.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-worker", arg],
+                cwd=ROOT, env=env, stdout=out, stderr=err, text=True,
+            ))
+        deadline = time.monotonic() + PAR_CHILD_TIMEOUT_S
+        codes = [p.poll() for p in procs]
+        while None in codes and not any(codes) and time.monotonic() < deadline:
+            time.sleep(0.2)
+            codes = [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for out, err in files:
+        out.seek(0)
+        err.seek(0)
+        texts.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    failed = [
+        f"rank {r} exited {p.returncode}: {err[-3000:]}"
+        for r, (p, (_, err)) in enumerate(zip(procs, texts)) if p.returncode
+    ]
+    check(not failed, f"{task} {mesh}: " + " | ".join(failed))
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in texts]
+
+
+def _par_batch(cfg, b, seed=0):
+    """One global CP microbatch (A=1) and a CIR one with ragged negative
+    masks (the first half of the rows keeps one valid negative of 10),
+    made on the card from a seed: the same on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    l = cfg.max_outfit_len
+    cat = torch.randn((CATALOG_ITEMS, cfg.d_embed), generator=gen, device="cuda")
+    idx = torch.randint(0, CATALOG_ITEMS, (1, b, l), generator=gen, device="cuda")
+    lengths = torch.randint(3, l + 1, (1, b, 1), generator=gen, device="cuda")
+    mask = torch.arange(l, device="cuda")[None, None, :] >= lengths
+    label = (torch.rand((1, b), generator=gen, device="cuda") < 0.5).float()
+    neg_mask = torch.zeros((1, b, 10), dtype=torch.bool, device="cuda")
+    neg_mask[:, : b // 2, 1:] = True
+    cir = {
+        "item_idx": idx, "mask": mask,
+        "pos_idx": torch.randint(0, CATALOG_ITEMS, (1, b), generator=gen, device="cuda"),
+        "neg_idx": torch.randint(0, CATALOG_ITEMS, (1, b, 10), generator=gen, device="cuda"),
+        "neg_mask": neg_mask,
+    }
+    return cat, {"item_idx": idx, "mask": mask, "label": label}, cir
+
+
+def _par_state(cfg, par, lr=1e-3):
+    from outfitx_tpu_torch.core.config import OptimizerConfig
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.train.optim import AdamW
+    from outfitx_tpu_torch.train.state import TrainState
+
+    model = OutfitXModel(cfg, device="cuda", seed=0, trainable=True)
+    if par is not None:
+        model.shard_(par)
+    opt = AdamW(model.parameters(), OptimizerConfig(learning_rate=lr, schedule="constant"), 10, par=par)
+    return model, TrainState.create(model, opt, seed=0, par=par)
+
+
+def _par_compare(par, model, single, out, out_single, what):
+    """Loss, whole gradients and updated parameters of the meshed step
+    against the one-rank step (rank 0 holds the one-rank model). An element
+    whose one-rank gradient lies within the gradient check's tolerance of
+    zero is left out of the parameters: an error the gradient check accepts
+    can flip its sign, and Adam's first step moves it by lr either way."""
+    grads, params = {}, {}
+    for n, p in model.named_parameters():
+        params[n] = par.full(p, p.data)
+        if p.grad is not None:
+            grads[n] = par.full(p, p.grad)
+    if par.rank != 0:
+        return None
+    ref = dict(single.named_parameters())
+    loss_err = abs(float(out["loss"]) - float(out_single["loss"]))
+    grad_err = max(float((grads[n] - ref[n].grad).abs().max()) for n in grads)
+    grad_scale = max(float(ref[n].grad.abs().max()) for n in grads)
+    param_err, left_out = 0.0, 0
+    for n in params:
+        g = ref[n].grad
+        sure = torch.ones_like(params[n], dtype=torch.bool) if g is None else g.abs() > PAR_TOL * grad_scale
+        left_out += int((~sure).sum())
+        if bool(sure.any()):
+            param_err = max(param_err, float((params[n] - ref[n].data)[sure].abs().max()))
+    check(loss_err <= PAR_TOL * max(1.0, abs(float(out_single["loss"]))),
+          f"{what}: loss off by {loss_err}")
+    check(grad_err <= PAR_TOL * grad_scale, f"{what}: gradients off by {grad_err} (max {grad_scale})")
+    check(param_err <= PAR_TOL, f"{what}: parameters off by {param_err}")
+    return {"loss": float(out["loss"]), "loss_abs_err": loss_err,
+            "grad_max_abs_err": grad_err, "grad_max_abs": grad_scale,
+            "param_max_abs_err": param_err, "param_elements_left_out": left_out,
+            "param_elements": sum(t.numel() for t in params.values())}
+
+
+def _mask_draw_ms(cfg, par):
+    """Device ms of one step's dropout draws (A=1): each rank draws the
+    global batch's masks and keeps its part; beside it, what draws at the
+    rank's own shapes would take."""
+    from outfitx_tpu_torch.core.rng import keep_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = cfg.transformer
+    s, d = cfg.max_outfit_len + 1, cfg.d_embed
+
+    def draws(rows, ffn):
+        for _ in range(t.n_layers):
+            for width in (d, ffn, d):
+                keep_mask(gen, t.dropout, (rows, s, width), "cuda")
+        keep_mask(gen, t.dropout, (rows, d), "cuda")
+
+    return {
+        "global": cuda_ms(lambda: draws(PAR_B, t.d_ffn), 10),
+        "rank_shapes": cuda_ms(lambda: draws(PAR_B // par.data, t.d_ffn // par.model), 10),
+    }
+
+
+def _parallel_mesh_worker(mesh):
+    """One rank of a 2-rank mesh on the one card (gloo, CUDA tensors)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    import outfitx_tpu_torch.models.outfit_transformer as ot
+    from outfitx_tpu_torch.core.config import MeshConfig, OutfitXConfig
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.parallel import setup_parallel
+    from outfitx_tpu_torch.train.steps import cir_train_step, cp_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    par = setup_parallel(MeshConfig(*mesh), "cuda")
+    res = {"mesh": mesh, "backend": par.backend, "position": list(par.position)}
+    cfg32 = OutfitXConfig(compute_dtype="float32")
+    cat, cp, cir = _par_batch(cfg32, PAR_B)
+    # float32: the meshed CP and CIR steps against the one-rank steps
+    for task, step, batch in (("cp", cp_train_step, cp), ("cir", cir_train_step, cir)):
+        model, state = _par_state(cfg32, par)
+        out = step(state, cat, batch)
+        single = out_single = None
+        if par.rank == 0:
+            single, state1 = _par_state(cfg32, None)
+            out_single = step(state1, cat, batch)
+        res[f"{task}_f32"] = _par_compare(par, model, single, out, out_single, f"{mesh} {task}")
+        del model, state, single
+        torch.cuda.empty_cache()
+    valid = (~cir["neg_mask"][0]).sum(dim=1)
+    res["cir_valid_negatives_by_data_rank"] = [
+        int(valid[i * PAR_B // par.data:(i + 1) * PAR_B // par.data].sum()) for i in range(par.data)
+    ]
+    # bfloat16: launches (and their shapes) a rank, then the step's time
+    cfg = OutfitXConfig()
+    model, state = _par_state(cfg, par)
+    shapes = Counter()
+    real = ot.masked_mha
+
+    def recorded(q, *a, **kw):
+        shapes[tuple(q.shape)] += 1
+        return real(q, *a, **kw)
+
+    ot.masked_mha = recorded
+    cp_train_step(state, cat, cp)  # warm
+    torch.cuda.synchronize()
+    masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
+    shapes.clear()
+    moved = par.bytes_moved
+    cp_train_step(state, cat, cp)
+    torch.cuda.synchronize()
+    ot.masked_mha = real
+    res["launches"] = {"masked_mha_fwd": masked_mha.launches,
+                       "masked_mha_bwd": masked_mha.bwd_launches,
+                       "layernorm": layer_norm.launches}
+    res["attention_shapes"] = [list(k) for k in shapes]
+    res["collective_bytes_per_step"] = par.bytes_moved - moved
+    n_layers = cfg.transformer.n_layers
+    want = {"masked_mha_fwd": n_layers, "masked_mha_bwd": n_layers,
+            "layernorm": _ln_per_forward(cfg)}
+    check(res["launches"] == want, f"{mesh}: launches {res['launches']}, expected {want}")
+    heads = cfg.transformer.n_heads // par.model
+    b = PAR_B // par.data
+    want_shape = [b, heads, cfg.max_outfit_len + 1, cfg.d_embed // cfg.transformer.n_heads]
+    check(res["attention_shapes"] == [want_shape],
+          f"{mesh}: attention at {res['attention_shapes']}, expected {want_shape}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(PAR_TIMED_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cp_train_step(state, cat, cp)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms_each"] = times
+    res["step_ms"] = float(np.mean(times))
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["dropout_masks_ms"] = _mask_draw_ms(cfg, par)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {k: res[k] for k in ("step_ms", "peak_memory_bytes", "launches")})
+    res["ranks"] = ranks
+    dist.destroy_process_group()
+    return res
+
+
+def _parallel_nccl_worker():
+    """A one-rank NCCL group: the CP trainer at the reference envelope
+    under the launcher's environment, as torchrun starts it."""
+    import torch.distributed as dist
+
+    from outfitx_tpu_torch.core.config import CPTrainConfig, OutfitXConfig
+    from outfitx_tpu_torch.data.synthetic import make_synthetic
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.train.cp_trainer import CPTrainer
+
+    cfg = OutfitXConfig()
+    data = make_synthetic(
+        n_items=CATALOG_ITEMS, d_embed=cfg.d_embed, n_outfits=TRAIN_B * TRAIN_A * TRAIN_STEPS,
+        outfit_len=(3, cfg.max_outfit_len), max_len=cfg.max_outfit_len, seed=0,
+    )
+    root = ROOT / "build" / "chip_smoke" / "nccl"
+    shutil.rmtree(root, ignore_errors=True)
+    tcfg = CPTrainConfig(
+        n_epochs=1, batch_size=TRAIN_B, accumulation_steps=TRAIN_A,
+        checkpoint_dir=str(root / "ckpt"), log_dir=str(root / "logs"),
+    )
+    with CPTrainer(tcfg, cfg, catalog=data.catalog, train_split=data.cp_train,
+                   valid_split=data.cp_valid, device="cuda") as t:
+        check(t.par is not None and t.par.backend == "nccl",
+              f"backend {t.par and t.par.backend}, expected nccl")
+        masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
+        t0 = time.perf_counter()
+        valid = t.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = (masked_mha.launches, masked_mha.bwd_launches, layer_norm.launches)
+        want = _expected_launches(cfg, t, TRAIN_STEPS)
+        check(t.state.step == TRAIN_STEPS, f"NCCL CPTrainer took {t.state.step} steps")
+        check(launches == want, f"NCCL CPTrainer launches {launches}, expected {want}")
+        check(math.isfinite(valid["loss"]), f"NCCL CPTrainer loss {valid['loss']}")
+        steps = t.state.step
+        timing = _step_timing(t, profile=False)
+        res = {
+            "backend": t.par.backend, "world": dist.get_world_size(), "steps": steps,
+            "batch": TRAIN_B, "accumulation": TRAIN_A, "run_s": run_s, "valid_loss": valid["loss"],
+            "launches": dict(zip(("masked_mha_fwd", "masked_mha_bwd", "layernorm"), launches)),
+            **timing,
+        }
+    dist.destroy_process_group()
+    return res
+
+
+def phase_parallel():
+    """The device mesh on the one card: sharded retrieval at 1, 2 and 4
+    shards, the 4-shard serving engine against the one-device engine, the
+    meshed CP and CIR steps in 2-rank gloo groups against the one-rank
+    step, and a one-rank NCCL group training at the envelope. Several
+    ranks or shards share one card here: the times measure no scaling."""
+    from outfitx_tpu_torch.core.config import OutfitXConfig
+
+    cfg = OutfitXConfig()
+    n, k = RETRIEVAL_ITEMS, 10
+    catalog = _big_catalog(n, cfg.d_embed, seed=3)
+    cat = torch.from_numpy(catalog.embeddings).to("cuda")
+    del catalog
+    queries = cat[torch.arange(0, n, n // RETRIEVAL_QUERIES, device="cuda")[:RETRIEVAL_QUERIES]]
+    retrieval = _shard_retrieval(cat, queries, n, k)
+    del cat, queries
+    torch.cuda.empty_cache()
+    engine_bf16, l1 = _mesh_engine_check(cfg, {"catalog_dtype": "bfloat16"})
+    engine_int8, l2 = _mesh_engine_check(cfg, {"quantized": True})
+    torch.cuda.empty_cache()
+    train = {}
+    counts = Counter(l1) + Counter(l2)
+    for mesh in PAR_MESHES + _card_meshes(torch.cuda.device_count()):
+        ranks = _run_ranks("mesh", mesh[0] * mesh[1], mesh)
+        name = "data{}_model{}{}".format(mesh[0], mesh[1], "_fsdp" if mesh[2] else "")
+        train[name] = ranks[0]
+        for r in ranks:
+            counts.update(r["launches"])
+    nccl = _run_ranks("nccl", 1)[0]
+    counts.update(nccl["launches"])
+    emit({
+        "phase": "parallel",
+        "note": "ranks and shards share one card: times measure no scaling",
+        "cards": torch.cuda.device_count(),
+        "sharded_retrieval": {"items": n, "queries": RETRIEVAL_QUERIES, "k": k, **retrieval},
+        "mesh_engine_bf16": engine_bf16, "mesh_engine_int8": engine_int8,
+        "train": train, "nccl_one_rank": nccl,
+    })
+    return dict(counts)
+
+
+def _card_meshes(cards: int):
+    """Meshes with one rank a card (NCCL) on a machine with several cards;
+    none on one card. On several, the 2-rank meshes above take a card a
+    rank too."""
+    if cards < 2:
+        return []
+    meshes = [(cards, 1, False), (cards, 1, True), (1, cards, False)]
+    if cards % 2 == 0 and cards > 2:
+        meshes += [(2, cards // 2, False), (2, cards // 2, True)]
+    return meshes
+
+
+def _parallel_worker(arg: str) -> int:
+    spec = json.loads(arg)
+    res = _parallel_mesh_worker(spec["mesh"]) if spec["task"] == "mesh" else _parallel_nccl_worker()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
         return 1
     import outfitx_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase_parallel
+        return _parallel_worker(sys.argv[2])
 
     # A reference states its float32 matmul and convolution precision.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3037,6 +3586,7 @@ def main() -> int:
     ocp_launches = phase_original_cp()
     torch.cuda.empty_cache()  # the CLI's child processes share the card
     cli_launches = phase_cli()
+    parallel_launches = phase_parallel()
     fwd, bwd, towers, layernorm, host = phase_timing(engine, q8_engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
@@ -3050,9 +3600,11 @@ def main() -> int:
             "at_original_cp_minilm": towers["masked_mha_fwd_original_cp_minilm"],
             "at_original_cp_set_transformer":
                 towers["masked_mha_fwd_original_cp_set_transformer"],
+            "at_parallel_tp_rank": fwd["tp"], "at_parallel_dp_rank": fwd["dp"],
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
             "at_b8": bwd[8], "at_original_cp_set_transformer": bwd["original_cp"],
+            "at_parallel_tp_rank": bwd["tp"], "at_parallel_dp_rank": bwd["dp"],
         }),
         ("attn_block", "outfitx_tpu/ops/attn_block.py:41", towers["attn_block"], {}),
         ("mlp_fused", "outfitx_tpu/ops/mlp.py:38", towers["mlp_fused_vision"], {
@@ -3065,12 +3617,15 @@ def main() -> int:
             "at_minilm_text_tower": layernorm["131072x384"],
             "at_original_cp_minilm": layernorm["89600x384"],
             "at_original_cp_set_transformer": layernorm["5950x128"],
+            "at_parallel_tp_rank": layernorm["13056x1536"],
+            "at_parallel_dp_rank": layernorm["6528x1536"],
             "host_us_per_call_at_serving_bucket": host,
         }),
     ]
     by_path = {
         **serve_launches, **train_launches, **precompute_launches,
         "http": http_launches, "original_cp": ocp_launches,
+        "parallel": parallel_launches,
     }
     for name, *_ in rows:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()

@@ -14,11 +14,12 @@ original-CP training and FITB evaluation (``train.cp_trainer``,
 ``train.cir_trainer``, ``train.original_cp_trainer``,
 ``train.fitb_trainer``), with asynchronous checkpoint saves; the collate
 layer (``data.processors``); the export to the reference's ``.pth``
-(``models.export_torch``); and the command line, ``python -m
-outfitx_tpu_torch.cli``. Not yet: the device mesh and what rests on it
-(data, tensor and FSDP parallelism, the row-sharded catalog). Every Pallas
-kernel of the JAX package has a hand-written CUDA counterpart under
-``csrc/``.
+(``models.export_torch``); the command line, ``python -m
+outfitx_tpu_torch.cli``; and the device mesh (``core.mesh``, ``parallel``):
+the row-sharded serving catalog and data, tensor and FSDP parallel training
+on ``torch.distributed``, one process per mesh position. Not yet: ``remat``
+and the native host assembler. Every Pallas kernel of the JAX package has a
+hand-written CUDA counterpart under ``csrc/``.
 
 Entry points run on the card (``device="cuda"``) and raise when there is
 none, unless the caller passes ``device="cpu"``.
@@ -31,6 +32,7 @@ from outfitx_tpu_torch.core.config import (  # noqa: F401
     CPTrainConfig,
     FITBTrainConfig,
     ItemEncoderConfig,
+    MeshConfig,
     OptimizerConfig,
     OutfitXConfig,
     PrecomputeConfig,

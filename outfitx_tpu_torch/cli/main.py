@@ -5,9 +5,11 @@
 The commands, options, defaults and JSON output are the JAX CLI's; each
 command builds the same configs as it (``_build_cfg``, ``_model_cfg``).
 ``--synthetic`` runs a task on generated data. ``--device {cuda,cpu}``
-chooses the device and defaults to the card. The options of modules this
-package has not ported yet (the device mesh, the sharded catalog, remat)
-fail with a message naming them, rather than being ignored.
+chooses the device and defaults to the card. ``--mesh-data`` and
+``--mesh-model`` lay out the training mesh (``MeshConfig``), one process per
+position: launch the command under ``torchrun --nproc_per_node N``.
+``--remat``, whose module this package has not ported yet, fails with a
+message naming it rather than being ignored.
 """
 
 from __future__ import annotations
@@ -23,11 +25,10 @@ from outfitx_tpu_torch.core.config import (
     CPTrainConfig,
     FITBTrainConfig,
     ItemEncoderConfig,
+    MeshConfig,
     OutfitXConfig,
     PrecomputeConfig,
 )
-
-NOT_PORTED = "is not ported to PyTorch yet (one card, no device mesh)"
 
 
 def _synth(model_cfg: OutfitXConfig, n_outfits: int = 2048, seed: int = 0):
@@ -74,10 +75,6 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _check_ported(parser: argparse.ArgumentParser, args) -> None:
-    if args.mesh_data not in (-1, 1):
-        parser.error(f"--mesh-data {args.mesh_data}: data parallelism {NOT_PORTED}")
-    if args.mesh_model != 1:
-        parser.error(f"--mesh-model {args.mesh_model}: tensor parallelism {NOT_PORTED}")
     if args.remat:
         parser.error("--remat: activation recomputation is not ported to PyTorch yet")
 
@@ -91,6 +88,7 @@ def _build_cfg(cls, args, **extra):
         dataset_dir=args.dataset_dir,
         polyvore_type=args.polyvore_type,
         checkpoint_dir=args.checkpoint_dir,
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         **extra,
     )
     if args.epochs is not None:
@@ -276,14 +274,13 @@ def cmd_demo(args, parser) -> int:
     """The serving demo (HTTP, port 6006)."""
     from outfitx_tpu_torch.serve.app import build_engine, serve
 
-    if args.shard_catalog:
-        parser.error(f"--shard-catalog: the row-sharded catalog {NOT_PORTED}")
     engine = build_engine(
         synthetic=args.synthetic, mock=args.mock, quantized=args.quantized,
         dataset_dir=args.dataset_dir, polyvore_type=args.polyvore_type,
         checkpoint_dir=args.checkpoint_dir, quantize_model=args.quantize_model,
         exact_topk=args.exact_topk, catalog_dtype=args.catalog_dtype,
-        spare_capacity=args.spare_capacity, device=args.device,
+        spare_capacity=args.spare_capacity, shard_catalog=args.shard_catalog,
+        device=args.device,
     )
     serve(
         port=args.port, engine=engine, mock=args.mock, coalesce_ms=args.coalesce_ms,

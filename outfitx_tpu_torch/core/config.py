@@ -3,10 +3,10 @@ dataclasses, with the same defaults).
 
 Here: the item encoder (which fixes the embedding width), the set
 transformer, the top-level ``OutfitXConfig``, the optimizer, the CP, CIR
-and FITB training configs and the precompute sweep's config. ``MeshConfig``
-and the training configs' ``mesh`` field wait for the parallelism slice: the
-trainers run on one card. The JAX package's ``remat`` options are not ported
-(an 80 GB card holds the activations at the training envelope).
+and FITB training configs, the precompute sweep's config and
+``MeshConfig``, the training configs' ``mesh`` layout. The JAX package's
+``remat`` options are not ported yet (an 80 GB card holds the activations
+at the training envelope).
 """
 
 from __future__ import annotations
@@ -100,6 +100,26 @@ class OutfitXConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device-mesh layout for training: one process per position.
+
+    ``data`` is the batch axis (DP); ``model`` is the tensor-parallel axis
+    over which attention heads and FFN hidden units split Megatron-style.
+    ``fsdp`` additionally splits the four layer matrices over the data axis
+    (ZeRO-3): each layer all-gathers them before use and reduce-scatters
+    their gradients."""
+
+    data: int = -1  # -1: every remaining process
+    model: int = 1
+    fsdp: bool = False
+
+    def resolve(self, n_devices: int) -> Tuple[int, int]:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else max(1, n_devices // model)
+        return data, model
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """AdamW + OneCycle + global-norm clip, as the reference envelope."""
 
@@ -125,6 +145,7 @@ class TrainConfig:
     batch_size: int = 3072  # batch per microbatch
     accumulation_steps: int = 4  # microbatches per optimizer step
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     dataset_dir: str = "datasets/polyvore"
     polyvore_type: str = "nondisjoint"  # {'nondisjoint', 'disjoint'}
     checkpoint_dir: str = "checkpoints"

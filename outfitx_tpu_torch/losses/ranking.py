@@ -4,7 +4,9 @@
 L_all: hinge(d_pos - d_neg_i + margin) summed over valid negatives, divided
 by the *global* valid-negative count (not per row). L_hard: hinge against
 the nearest valid negative (padded negatives -> +inf), averaged over the
-batch. Total = L_all + L_hard. CIR training uses margin 2.
+batch. Total = L_all + L_hard. CIR training uses margin 2. Under data
+parallelism a rank passes the global valid-negative count and batch size,
+and the ranks' losses sum to the global one.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ def set_wise_ranking_loss(
     negative_mask: torch.Tensor,  # (B, K) bool, True = pad/invalid
     *,
     margin: float = 2.0,
+    valid_count: torch.Tensor | None = None,
+    batch_size: int | None = None,
 ) -> torch.Tensor:
+    """``valid_count`` and ``batch_size`` replace the normalisers of L_all
+    and L_hard (default: this batch's own)."""
     pos = positive.float()
     pred = predicted.float()
     negs = negatives.float()
@@ -30,10 +36,13 @@ def set_wise_ranking_loss(
     neg_dists = torch.linalg.vector_norm(pred[:, None, :] - negs, dim=-1)  # (B, K)
 
     valid = (~negative_mask).float()
-    valid_count = valid.sum().clamp_min(1.0)
+    if valid_count is None:
+        valid_count = valid.sum()
+    valid_count = valid_count.clamp_min(1.0)
     hinge = (pos_dist[:, None] - neg_dists + margin).clamp_min(0.0)
     l_all = (hinge * valid).sum() / valid_count
 
     hardest = neg_dists.masked_fill(negative_mask, float("inf")).amin(dim=1)
-    l_hard = (pos_dist - hardest + margin).clamp_min(0.0).mean()
+    l_hard = (pos_dist - hardest + margin).clamp_min(0.0)
+    l_hard = l_hard.mean() if batch_size is None else l_hard.sum() / batch_size
     return l_all + l_hard

@@ -23,12 +23,25 @@ into the output dropout). Masks come from ``core.rng.keep_mask`` with a
 ``torch.Generator`` the caller passes in, scaled by the actual keep
 probability. A serving build (the default) has no trainable parameter; a
 training build (``trainable=True``) has trainable float32 parameters.
+
+Tensor parallelism (``OutfitXModel.shard_``, one process per mesh
+position) is Megatron's: a rank holds its ``n_heads/model`` heads and
+``d_ffn/model`` FFN units; the QKV and FFN-in products are column-parallel
+behind f (identity forward, all-reduce of the gradient backward), the
+out-projection and FFN-out are row-parallel followed by g (all-reduce of the
+partial sums forward), and ``bo`` and ``b2`` are added once, after g, as
+the JAX layer adds them. FSDP also splits each of those four matrices over
+the data axis and all-gathers it at its use. Dropout under a mesh draws the
+global batch's mask at the full width and keeps this rank's rows (and, for
+the FFN hidden units, its columns), so a meshed run draws the masks of the
+one-rank run. A model that is not sharded runs the same path with
+``parallel.SINGLE``, whose collectives and cuts are all the identity.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -37,18 +50,30 @@ from outfitx_tpu_torch.core import dtypes
 from outfitx_tpu_torch.core import rng as rng_ops
 from outfitx_tpu_torch.core.config import OutfitXConfig
 from outfitx_tpu_torch.core.device import resolve_device
+from outfitx_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, join_blocks, shard_blocks
 from outfitx_tpu_torch.ops import layer_norm, masked_mha, resolve_activation
 from outfitx_tpu_torch.ops.attn_block import attn_block
+from outfitx_tpu_torch.parallel import SINGLE
 
 
-def _dropout(x, rate: float, gen: Optional[torch.Generator]):
+def _dropout(x, rate: float, gen: Optional[torch.Generator], par=SINGLE, columns: bool = False):
     """Inverted dropout at ``rate`` with a mask from ``gen``; identity at
-    rate 0 (eval mode passes 0)."""
+    rate 0 (eval mode passes 0). The mask is drawn for the global batch,
+    whose rows are ``par.data`` times ``x``'s, and this rank keeps its rows;
+    ``columns`` marks a last dimension split over the model axis, drawn at
+    the full width and cut to this rank's block. On one device (``SINGLE``)
+    both cuts keep everything."""
     if rate == 0.0:
         return x
     if gen is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep, q = rng_ops.keep_mask(gen, rate, x.shape, x.device)
+    shape = (x.shape[0] * par.data,) + tuple(x.shape[1:])
+    if columns:
+        shape = shape[:-1] + (shape[-1] * par.model,)
+    keep, q = rng_ops.keep_mask(gen, rate, shape, x.device)
+    keep = par.rows(keep)
+    if columns:
+        keep = par.columns(keep)
     return torch.where(keep, x / q, torch.zeros_like(x))
 
 
@@ -112,20 +137,25 @@ class _SelfAttention(nn.Module):
             hit = self._block[dtype] = (versions, weights)
         return hit[1]
 
-    def forward(self, y, pad_mask, block: bool = False):
+    def forward(self, y, pad_mask, block: bool, par):
+        """This rank's heads (all of them on one device): column-parallel
+        QKV behind f, row-parallel out-projection, g, then the bias."""
         b, s, d = y.shape
-        h = self.n_heads
         if block:
             # The JAX package's OUTFITX_ATTN_BLOCK=fused route: the block's
             # float32 output cast to y's dtype, then the out-projection bias.
             wqkv, bqkv, wo = self._block_weights(y.dtype)
-            o = attn_block(y, wqkv, bqkv, wo, pad_mask, h).to(y.dtype)
+            o = attn_block(y, wqkv, bqkv, wo, pad_mask, self.n_heads).to(y.dtype)
             return o + self.out_proj.bias.to(y.dtype)
-        qkv = _dense(y, self.in_proj_weight, self.in_proj_bias)  # (B, S, 3d)
-        qkv = qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
-        o = masked_mha(qkv[0], qkv[1], qkv[2], pad_mask)  # (B, H, S, Dh)
-        o = o.transpose(1, 2).reshape(b, s, d)
-        return self.out_proj(o)
+        h = self.n_heads // par.model
+        y = par.copy_to_model(y)
+        w = par.gather_weight(self.in_proj_weight, dim=1)  # (3d/M, d)
+        qkv = _dense(y, w, self.in_proj_bias)  # (B, S, 3d/M)
+        qkv = qkv.view(b, s, 3, h, d // self.n_heads).permute(2, 0, 3, 1, 4).contiguous()
+        o = masked_mha(qkv[0], qkv[1], qkv[2], pad_mask)  # (B, H/M, S, Dh)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        o = par.reduce_from_model(_dense(o, par.gather_weight(self.out_proj.weight, dim=0)))
+        return o + self.out_proj.bias.to(o.dtype)
 
 
 class _EncoderLayer(nn.Module):
@@ -147,16 +177,20 @@ class _EncoderLayer(nn.Module):
         self.norm1 = _LayerNorm(d)
         self.norm2 = _LayerNorm(d)
 
-    def forward(self, x, pad_mask, gen=None):
+    def forward(self, x, pad_mask, gen, par):
         rate = self.dropout if self.training else 0.0
         y = self.norm1(x) if self.norm_first else x
         block = self.attn == "block" and not self.training
-        x = x + _dropout(self.self_attn(y, pad_mask, block), rate, gen)
+        x = x + _dropout(self.self_attn(y, pad_mask, block, par), rate, gen, par)
         if not self.norm_first:
             x = self.norm1(x)
         y = self.norm2(x) if self.norm_first else x
-        hidden = _dropout(self.act(self.linear1(y)), rate, gen)
-        x = x + _dropout(self.linear2(hidden), rate, gen)
+        # this rank's FFN units: column-parallel in, row-parallel out
+        y = par.copy_to_model(y)
+        w1 = par.gather_weight(self.linear1.weight, dim=1)
+        hidden = _dropout(self.act(_dense(y, w1, self.linear1.bias)), rate, gen, par, columns=True)
+        out = par.reduce_from_model(_dense(hidden, par.gather_weight(self.linear2.weight, dim=0)))
+        x = x + _dropout(out + self.linear2.bias.to(out.dtype), rate, gen, par)
         if not self.norm_first:
             x = self.norm2(x)
         return x
@@ -170,9 +204,9 @@ class _Encoder(nn.Module):
         )
         self.norm = _LayerNorm(cfg.d_embed) if cfg.transformer.final_norm else None
 
-    def forward(self, x, pad_mask, gen=None):
+    def forward(self, x, pad_mask, gen, par):
         for layer in self.layers:
-            x = layer(x, pad_mask, gen)
+            x = layer(x, pad_mask, gen, par)
         if self.norm is not None:
             x = self.norm(x)
         return x
@@ -213,6 +247,7 @@ class OutfitXModel(nn.Module):
         # applied in cp_forward.
         self.cp_ffn = nn.Sequential(nn.Identity(), _Linear(d, 1))
         self.cir_ffn = nn.Sequential(_Linear(d, d, bias=False))
+        self.par = SINGLE  # this rank's ParallelContext once shard_ has cut the weights
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(device=dev, dtype=dtypes.resolve(cfg.param_dtype))
         self.requires_grad_(trainable)
@@ -257,7 +292,7 @@ class OutfitXModel(nn.Module):
         states (B, S, D) in the compute dtype. In train mode ``generator``
         draws the dropout masks."""
         return self.transformer_encoder(
-            tokens.to(self.compute_dtype), pad_mask, generator
+            tokens.to(self.compute_dtype), pad_mask, generator, self.par
         )
 
     def _with_prefix(self, prefix, outfit_embedding, outfit_mask, generator):
@@ -275,7 +310,7 @@ class OutfitXModel(nn.Module):
         tok = self.outfit_token.to(cdt)[None, None, :].expand(b, 1, -1)
         states = self._with_prefix(tok, outfit_embedding, outfit_mask, generator)
         rate = self.cfg.transformer.dropout if self.training else 0.0
-        token_state = _dropout(states[:, 0, :], rate, generator)
+        token_state = _dropout(states[:, 0, :], rate, generator, self.par)
         return self.cp_ffn(token_state)[:, 0].float()
 
     def cir_forward(
@@ -295,3 +330,99 @@ class OutfitXModel(nn.Module):
 
     # FITB shares the CIR forward.
     fitb_forward = cir_forward
+
+    # ---------------------------------------------------------- meshes --
+    @torch.no_grad()
+    def shard_(self, par) -> "OutfitXModel":
+        """Cut the full weights, in place, to the block this rank holds at
+        ``par.position`` (``param_partition_specs``), and run the forward
+        tensor-parallel from now on. Each parameter is tagged with the mesh
+        axes it is split over (``mesh_axes``) for the gradient reduction
+        and the clip norm."""
+        t = self.cfg.transformer
+        if par.model > 1 and any(l.attn == "block" for l in self.transformer_encoder.layers):
+            raise ValueError(
+                "attn='block' has no tensor-parallel route: the fused block "
+                "runs on one device only; use attn='mha' on a model axis > 1"
+            )
+        if t.n_heads % par.model:
+            raise ValueError(
+                f"n_heads {t.n_heads} does not divide the 'model' axis ({par.model})"
+            )
+        specs = param_partition_specs(self.cfg, fsdp=par.fsdp)
+        for name, p in self.named_parameters():
+            p.mesh_spec = specs[name]
+            p.mesh_blocks = _qkv_blocks(name)
+            p.mesh_axes = tuple(a for a in specs[name] if a is not None and par.size(a) > 1)
+            p.data = par.local(p, p.data).clone()
+        self.par = par
+        return self
+
+
+def _qkv_blocks(name: str) -> int:
+    """3 for the parameters whose leading dimension is the [Q; K; V] stack
+    (their model-axis block is the same block of each of the three), else 1."""
+    return 3 if name.endswith(("self_attn.in_proj_weight", "self_attn.in_proj_bias")) else 1
+
+
+def param_partition_specs(cfg: OutfitXConfig, *, fsdp: bool = False) -> Dict[str, tuple]:
+    """For each state-dict name, the mesh axis each dimension is split over
+    (None: whole), in the port's (out, in) layouts: the counterpart of the
+    JAX model's ``param_partition_specs``. QKV and FFN-in are split on
+    their output rows over 'model', the out-projection and FFN-out on their
+    input columns; with ``fsdp`` the other dimension of those four matrices
+    splits over 'data'. Everything else is replicated."""
+    dax = DATA_AXIS if fsdp else None
+    specs = {}
+    for i in range(cfg.transformer.n_layers):
+        p = f"transformer_encoder.layers.{i}."
+        specs.update({
+            p + "self_attn.in_proj_weight": (MODEL_AXIS, dax),
+            p + "self_attn.in_proj_bias": (MODEL_AXIS,),
+            p + "self_attn.out_proj.weight": (dax, MODEL_AXIS),
+            p + "self_attn.out_proj.bias": (None,),
+            p + "linear1.weight": (MODEL_AXIS, dax),
+            p + "linear1.bias": (MODEL_AXIS,),
+            p + "linear2.weight": (dax, MODEL_AXIS),
+            p + "linear2.bias": (None,),
+        })
+        for n in ("norm1", "norm2"):
+            specs[p + n + ".weight"] = specs[p + n + ".bias"] = (None,)
+    if cfg.transformer.final_norm:
+        specs["transformer_encoder.norm.weight"] = (None,)
+        specs["transformer_encoder.norm.bias"] = (None,)
+    specs.update({
+        "outfit_token": (None,), "target_item_image_emb": (None,),
+        "cp_ffn.1.weight": (None, None), "cp_ffn.1.bias": (None,),
+        "cir_ffn.0.weight": (None, None),
+    })
+    return specs
+
+
+def shard_state_dict(sd, cfg: OutfitXConfig, mesh_shape, position, *, fsdp: bool = False):
+    """A full state dict (tensors or numpy arrays) cut to the blocks at mesh
+    ``position``."""
+    specs = param_partition_specs(cfg, fsdp=fsdp)
+    return {
+        k: shard_blocks(v, specs[k], _qkv_blocks(k), mesh_shape, position)
+        for k, v in sd.items()
+    }
+
+
+def join_state_dicts(shards, cfg: OutfitXConfig, mesh_shape, *, fsdp: bool = False):
+    """The inverse of ``shard_state_dict``: ``shards`` maps each (data,
+    model) position to its state dict; returns the full state dict."""
+    specs = param_partition_specs(cfg, fsdp=fsdp)
+    out = {}
+    for name in shards[(0, 0)]:
+        spec, blocks = specs[name], _qkv_blocks(name)
+
+        def along(axis, get):
+            if axis not in spec:
+                return get(0)
+            return join_blocks([get(i) for i in range(mesh_shape[axis])], axis, spec, blocks)
+
+        out[name] = along(
+            MODEL_AXIS, lambda m: along(DATA_AXIS, lambda d: shards[(d, m)][name])
+        )
+    return out

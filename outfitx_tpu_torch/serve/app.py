@@ -37,6 +37,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import torch
+
 from outfitx_tpu_torch.core.config import OutfitXConfig
 from outfitx_tpu_torch.core.device import resolve_device
 from outfitx_tpu_torch.data.catalog import Catalog
@@ -293,14 +295,17 @@ def build_engine(
     ``attn="block"`` serves the set transformer through the fused attention
     block (``OutfitXModel``'s ``attn``). ``quantize_model`` serves the int8
     (W8A8) twin of the weights (``ServingEngine``'s ``quantize_model``).
+    ``shard_catalog`` row-shards the catalog over every local card (a 1-D
+    data mesh; on the CPU, one shard).
     """
-    if shard_catalog:
-        raise NotImplementedError(
-            "['shard_catalog'] not ported to PyTorch yet: the mesh-sharded "
-            "catalog comes with the parallelism slice"
-        )
     if not mock:
         resolve_device(device)  # fail before any loading when there is no card
+    mesh = None
+    if shard_catalog and not mock:
+        from outfitx_tpu_torch.core.mesh import make_mesh
+
+        dev = torch.device(device)
+        mesh = make_mesh(devices=[dev] if dev.type == "cpu" else None)
     model_cfg = model_cfg or OutfitXConfig()
     pools = None
     cp_split = cir_split = fitb_split = None
@@ -360,6 +365,7 @@ def build_engine(
             cir_params = load_jax_checkpoint(cir_dir)
     images_dir = pathlib.Path(dataset_dir) / "images"
     return ServingEngine(
+        mesh=mesh,
         model_cfg=model_cfg,
         catalog=catalog,
         cp_params=cp_params,

@@ -12,15 +12,19 @@ per-category candidate pools, and serves:
 
 The sibling modules carry the rest behind the same ``ServingEngine``:
 - serve/programs.py    the task functions, the whole-catalog route matrix
-                       ({dense, int8} x {materialised, chunked}), the warmup
+                       ({dense, int8} x {materialised, chunked, mesh-sharded}),
+                       the warmup
 - serve/batched.py     the batched request forms
 - serve/live_update.py live catalog updates and appends
 - serve/browse.py      dataset-sample browsing views
 
 Top-k is exact on every route (``approx_topk`` is accepted; see
 ``ops/retrieval.py``). ``quantize_model`` serves the int8 (W8A8) twin of
-each model (``models/quantized.py``). The mesh-sharded catalog (``mesh``)
-is not ported yet: asking for it raises ``NotImplementedError``.
+each model (``models/quantized.py``). With ``mesh`` the catalog (dense or
+int8) is row-sharded over the mesh's data axis (``ops/retrieval_sharded.py``):
+each shard lives on its device, whole-catalog retrieval takes a top-k per
+shard and merges on the engine's device, and the models stay on the
+engine's device, where a request's rows are gathered from their shards.
 """
 
 from __future__ import annotations
@@ -107,7 +111,10 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     # hold huge-norm sentinels that can never win a top-k slot, so retrieval
     # sweeps the full capacity safely.
     spare_capacity: int = 0
-    # Row-sharded catalog over several cards: not ported yet, raises.
+    # Serve from a device mesh (``core.mesh.make_mesh``): the catalog is
+    # row-sharded over its data axis, the rows padded host-side to a
+    # multiple of the shard count (pads sit past the PAD row and never
+    # win). None = one device (default).
     mesh: Optional[object] = None
     # Device-resident catalog storage dtype. "bfloat16" halves the catalog's
     # device memory and the one-time host-to-device copy. The forward
@@ -137,11 +144,6 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
     attn: str = "mha"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "serving route not ported to PyTorch yet: mesh (the "
-                "mesh-sharded catalog); it comes with a later slice of the port"
-            )
         if self.quantize_model and self.attn != "mha":
             raise ValueError(
                 f"quantize_model has no attn={self.attn!r} route: the int8 "
@@ -191,10 +193,13 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
         # bytes; the copy is the engine's own (never the host array's memory).
         host = torch.from_numpy(self.catalog.embeddings)
         cast = host.to(_CATALOG_DTYPES[self.catalog_dtype])
-        self.catalog_dev = cast.to(self._dev)
-        if self.catalog_dev.data_ptr() == host.data_ptr():  # float32 on the CPU
-            self.catalog_dev = host.clone()
-        if self.quantized:
+        if self.mesh is not None:
+            self._shard_catalog(cast)
+        else:
+            self.catalog_dev = cast.to(self._dev)
+            if self.catalog_dev.data_ptr() == host.data_ptr():  # float32 on the CPU
+                self.catalog_dev = host.clone()
+        if self.quantized and self.mesh is None:
             # Quantise through pad_row: spare sentinel rows get huge
             # sq_norms (they never win) and appends requantise their rows in
             # place. The PAD row stays out of retrieval anyway.
@@ -208,6 +213,7 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
             chunked=n > self.chunk_threshold,
             chunk_size=self.chunk_threshold,
             approx=self.approx_topk,
+            mesh=self.mesh,
         )
         self.cp_model = self._model(self.cp_params)
         self.cir_model = (
@@ -217,6 +223,30 @@ class ServingEngine(TaskPrograms, BatchedRequests, LiveCatalogUpdates, BrowseVie
         )
         if self.warmup:
             self._warmup()
+
+    def _shard_catalog(self, cast: torch.Tensor) -> None:
+        """Row-shard the catalog over the mesh's data axis: pad the rows
+        host-side to a multiple of the shard count, then place each block on
+        its device. The int8 catalog quantises every row, pads included (to
+        zeros), shard by shard: the quantisation is row by row, so that
+        equals quantising the padded table in one go."""
+        from outfitx_tpu_torch.core.mesh import DATA_AXIS
+        from outfitx_tpu_torch.ops.retrieval_sharded import (
+            ShardedRows,
+            pad_rows_to_shards,
+            shard_rows,
+        )
+
+        n_pad = pad_rows_to_shards(cast.shape[0], self.mesh.shape[DATA_AXIS])
+        if n_pad != cast.shape[0]:
+            cast = torch.cat([cast, cast.new_zeros((n_pad - cast.shape[0], cast.shape[1]))])
+        self.catalog_dev = shard_rows(cast, self.mesh)
+        if self.quantized:
+            parts = [quantize_catalog(s) for s in self.catalog_dev.shards]
+            self._qcat = type(parts[0])(*(
+                ShardedRows([getattr(p, f) for p in parts])
+                for f in ("values", "scales", "sq_norms")
+            ))
 
     def _model(self, state_dict) -> Optional[OutfitXModel | QuantizedOutfitX]:
         if state_dict is None:

@@ -14,7 +14,10 @@ and a write between the two reads would give a torn answer. The contract is
 kept by order: every mutation runs under ``self._update_lock``, and
 ``ServingEngine._run`` enqueues a request's device work under the same lock.
 All of it goes to the one CUDA stream, which runs in order, so each request
-sees the catalog wholly before or wholly after an update.
+sees the catalog wholly before or wholly after an update. On a mesh each row
+is written into the shard that owns it (``ShardedRows.index_copy_``), on
+that shard's device's current stream, where the requests' work on that
+shard is enqueued under the same lock.
 """
 
 from __future__ import annotations

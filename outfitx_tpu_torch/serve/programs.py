@@ -7,7 +7,8 @@ argmin. The JAX package compiles each into one jitted program
 (``outfitx_tpu/serve/programs.py``); here they run eagerly, and every kernel
 they reach launches on the current CUDA stream. Whole-catalog retrieval is
 routed by the engine's configuration, fixed for its lifetime: {dense, int8} x
-{materialised, streamed in chunks} (``CatalogRoute``).
+{materialised, streamed in chunks, row-sharded over a mesh}
+(``CatalogRoute``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ from outfitx_tpu_torch.ops.retrieval import (
     retrieve,
     retrieve_chunked,
     retrieve_per_query_pools,
+)
+from outfitx_tpu_torch.ops.retrieval_sharded import (
+    retrieve_quantized_sharded,
+    retrieve_sharded,
 )
 
 
@@ -53,11 +58,20 @@ class CatalogRoute:
     chunked: bool = False
     chunk_size: int = 262_144
     approx: bool = True
+    mesh: object = None  # a mesh: the catalog is row-sharded over it
 
 
 def catalog_topk(y, cat, qcat, route: CatalogRoute, k: int):
     """Top-k of queries ``y`` over the whole catalog by ``route``: (d2,
     catalog rows)."""
+    if route.mesh is not None:
+        if route.quantized:
+            return retrieve_quantized_sharded(
+                y, qcat, k, mesh=route.mesh, n_rows=route.n_rows, approx=route.approx
+            )
+        return retrieve_sharded(
+            y, cat, k, mesh=route.mesh, n_rows=route.n_rows, approx=route.approx
+        )
     if route.quantized and route.chunked:
         return retrieve_quantized_chunked(
             y, qcat, k, chunk_size=route.chunk_size, approx=route.approx

@@ -47,14 +47,17 @@ from outfitx_tpu_torch.models.from_jax import (
 )
 
 
-def optimizer_tree(model: torch.nn.Module, optimizer) -> Dict[str, Any]:
-    """The optimizer's state as a tree keyed by parameter name."""
+def optimizer_tree(model: torch.nn.Module, optimizer, full=None) -> Dict[str, Any]:
+    """The optimizer's state as a tree keyed by parameter name. ``full(p,
+    moment)`` makes a mesh rank's block of a moment whole (a collective:
+    every rank calls it)."""
     names = {id(p): n for n, p in model.named_parameters()}
     state = optimizer.state_dict()
+    full = full or (lambda p, m: m)
 
     def keyed(moments):
         return {
-            names[id(p)]: m.detach().cpu().numpy()
+            names[id(p)]: full(p, m).detach().cpu().numpy()
             for p, m in zip(optimizer.params, moments)
         }
 
@@ -65,13 +68,19 @@ def optimizer_tree(model: torch.nn.Module, optimizer) -> Dict[str, Any]:
     }
 
 
-def load_optimizer_tree(model: torch.nn.Module, optimizer, tree) -> None:
+def load_optimizer_tree(model: torch.nn.Module, optimizer, tree, local=None) -> None:
+    """The inverse of ``optimizer_tree``; ``local(p, moment)`` cuts a whole
+    moment to a mesh rank's block."""
     names = {id(p): n for n, p in model.named_parameters()}
-    order = [names[id(p)] for p in optimizer.params]
+    local = local or (lambda p, m: m)
+
+    def moments(key):
+        return [local(p, np.asarray(tree[key][names[id(p)]])) for p in optimizer.params]
+
     optimizer.load_state_dict({
         "count": int(np.asarray(tree["count"])),
-        "mu": [tree["mu"][n] for n in order],
-        "nu": [tree["nu"][n] for n in order],
+        "mu": moments("mu"),
+        "nu": moments("nu"),
     })
 
 

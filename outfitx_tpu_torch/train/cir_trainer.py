@@ -7,7 +7,10 @@ ranking loss with margin 2, Recall@{1,5,10,15,30,50} against the
 per-category candidate pools every ``recall_every`` epochs and every epoch
 after the switch, and best checkpoints only after the switch. Batches come
 from the host sampler's python route (one int32 super-batch per step to the
-device); the eval queries are staged on the device once.
+device); the eval queries are staged on the device once. Under a mesh the
+step takes each rank's rows of the super-batch, and the eval predictions
+are gathered over the data axis, so loss and recall are computed whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -82,8 +85,11 @@ class CIRTrainer(Trainer):
         n_train = len(self._train_split) if self._train_split is not None else 0
         super_b = self.cfg.batch_size * self.cfg.accumulation_steps
         self.total_steps = max(n_train // super_b, 1) * self.cfg.n_epochs
-        optimizer = AdamW(self.model.parameters(), self.cfg.optimizer, self.total_steps)
-        self.state = TrainState.create(self.model, optimizer, self.cfg.seed)
+        self.shard_model_params(self.model)
+        optimizer = AdamW(
+            self.model.parameters(), self.cfg.optimizer, self.total_steps, par=self.par
+        )
+        self.state = TrainState.create(self.model, optimizer, self.cfg.seed, par=self.par)
 
     def setup_data(self) -> None:
         if self._catalog is None:
@@ -142,7 +148,7 @@ class CIRTrainer(Trainer):
         path = self.cfg.warm_start_from
         if path:
             payload = self.ckpt.restore(path)
-            self.model.load_state_dict(payload["params"], strict=True)
+            self.load_params(self.model, payload["params"])
             self.log(f"warm-started params from {path}")
 
     # ------------------------------------------------------------ train --
@@ -181,13 +187,13 @@ class CIRTrainer(Trainer):
         """y_hats (n, D) on the device for all eval queries."""
         if len(self._eval_queries["pos_idx"]) == 0:
             return torch.zeros((0, self._catalog.d_embed), device=self.device)
-        outs = [
-            cir_eval_step(
+        outs = []
+        for b in self._eval_batches:
+            b = self.rows(b)
+            outs.append(self.gather_rows(cir_eval_step(
                 self.state.model, self.catalog_dev,
                 b["item_idx"], b["mask"], b["pos_idx"],
-            )
-            for b in self._eval_batches
-        ]
+            )))
         return torch.cat(outs).index_select(0, self._eval_valid_idx_dev)
 
     def _eval_loss(self, epoch: int, y_hats: torch.Tensor) -> float:

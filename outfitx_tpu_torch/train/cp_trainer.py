@@ -5,7 +5,10 @@ Focal loss (alpha 0.75, gamma 2), AdamW + OneCycle over a horizon set by the
 train split's length, gradient accumulation and clip 1.0; epoch-level
 AUC/Acc/P/R/F1 from the logits of the whole epoch; best checkpoints on AUC
 and loss. The split is staged on the device once and each super-batch is
-gathered there by the epoch's stateless shuffle order.
+gathered there by the epoch's stateless shuffle order. Under a mesh every
+rank gathers the same global super-batches, the step takes its rows, and
+the epoch's scores, labels and eval logits are gathered over the data axis
+for the metrics.
 """
 
 from __future__ import annotations
@@ -65,8 +68,11 @@ class CPTrainer(Trainer):
         n_train = len(self._train_split) if self._train_split is not None else 0
         super_b = self.cfg.batch_size * self.cfg.accumulation_steps
         self.total_steps = max(n_train // super_b, 1) * self.cfg.n_epochs
-        optimizer = AdamW(self.model.parameters(), self.cfg.optimizer, self.total_steps)
-        self.state = TrainState.create(self.model, optimizer, self.cfg.seed)
+        self.shard_model_params(self.model)
+        optimizer = AdamW(
+            self.model.parameters(), self.cfg.optimizer, self.total_steps, par=self.par
+        )
+        self.state = TrainState.create(self.model, optimizer, self.cfg.seed, par=self.par)
 
     def setup_data(self) -> None:
         if self._catalog is None:
@@ -139,7 +145,7 @@ class CPTrainer(Trainer):
             losses.append(out["loss"])
             scores.append(out["scores"])
             labels.append(out["labels"])
-            if log_every and (step_i + 1) % log_every == 0:
+            if log_every and self.metrics_log and (step_i + 1) % log_every == 0:
                 self.metrics_log.log(
                     "train_batch", epoch, {"loss": float(out["loss"])},
                     step=self.state.step,
@@ -148,8 +154,8 @@ class CPTrainer(Trainer):
             return {}
         # One host sync at the epoch's end.
         metrics = binary_classification_metrics(
-            torch.cat([s.reshape(-1) for s in scores]).cpu().numpy(),
-            torch.cat([y.reshape(-1) for y in labels]).cpu().numpy(),
+            self.gather_rows(torch.cat([s.reshape(-1) for s in scores])).cpu().numpy(),
+            self.gather_rows(torch.cat([y.reshape(-1) for y in labels])).cpu().numpy(),
             from_logits=True,
         )
         metrics["loss"] = float(np.mean(torch.stack(losses).cpu().numpy(), dtype=np.float64))
@@ -158,9 +164,10 @@ class CPTrainer(Trainer):
     def _eval_split(self, batches) -> Dict[str, float]:
         scores_all, labels_all, valid_all, losses = [], [], [], []
         for batch, label_host, valid in batches:
-            s = cp_eval_step(
-                self.state.model, self.catalog_dev, batch["item_idx"], batch["mask"]
-            )
+            local = self.rows(batch)
+            s = self.gather_rows(cp_eval_step(
+                self.state.model, self.catalog_dev, local["item_idx"], local["mask"]
+            ))
             # per-example loss, so the wrap-around rows leave the mean too
             losses.append(focal_loss(
                 s, batch["label"], alpha=self.cfg.focal_alpha,

@@ -7,6 +7,8 @@ picks, among its candidates, the one nearest (L2) the CIR prediction for
 the partial outfit; the ground-truth answer's text half conditions the
 prediction, as the reference's FITB dataset passes the answer as the
 target. Accuracy is the share of questions whose pick is the answer.
+Under a mesh each rank picks for its rows of every batch and the picks
+are gathered over the data axis.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class FITBTrainer(Trainer):
         self.model = OutfitXModel(self.model_cfg, device=self.device, seed=self.cfg.seed)
 
     def load_optimizer(self) -> None:  # evaluation only
-        pass
+        self.shard_model_params(self.model)
 
     def setup_data(self) -> None:
         if self._catalog is None:
@@ -71,7 +73,7 @@ class FITBTrainer(Trainer):
     def hook_after_setup(self) -> None:
         path = self.cfg.checkpoint_from
         if path:
-            self.model.load_state_dict(self.ckpt.restore(path)["params"], strict=True)
+            self.load_params(self.model, self.ckpt.restore(path)["params"])
             self.log(f"loaded params from {path}")
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -94,14 +96,14 @@ class FITBTrainer(Trainer):
             },
             batch_size=self.eval_batch_size,
         ):
-            dev = {
+            dev = self.rows({
                 k: torch.as_tensor(batch[k], device=self.device)
                 for k in ("item_idx", "mask", "cand_rows", "answer_rows")
-            }
-            picks.append(fitb_eval_step(
+            })
+            picks.append(self.gather_rows(fitb_eval_step(
                 self.model, self.catalog_dev, dev["item_idx"], dev["mask"],
                 dev["cand_rows"], dev["answer_rows"],
-            ).cpu().numpy())
+            )).cpu().numpy())
             valids.append(batch["valid"])
             answers.append(batch["answer_idx"])
         valid = np.concatenate(valids)

@@ -1,10 +1,16 @@
 """Trainer harness (the port of ``outfitx_tpu/train/harness.py``).
 
 A context manager with ``run()``, abstract hooks and the checkpoint and
-metric gateways. There is no mesh: a trainer runs on one device, the card
-by default (``device="cuda"``, which raises without one) or the CPU when
-asked. Mid-run saves (best metrics, the rolling ``latest``) go through the
-checkpoint writer thread when ``cfg.async_saves``; the final save is
+metric gateways. A trainer runs on the card by default (``device="cuda"``,
+which raises without one) or the CPU when asked. ``cfg.mesh`` lays out a
+training mesh of one process per position (``parallel.setup_parallel``,
+under ``torchrun`` or any launcher that sets RANK and WORLD_SIZE): each
+process runs the same trainer, holds its blocks of the weights
+(``shard_model_params``) and its rows of each batch, and only rank 0 logs
+and writes checkpoints, which hold the whole tree (gathered on the training
+thread, since the gather is a collective). Mid-run saves (best metrics,
+the rolling ``latest``) go through the checkpoint writer thread when
+``cfg.async_saves``; the final save is
 synchronous, after the queue is written. ``profile_dir`` set, epoch 1 (the
 second; the first pays the kernels' builds) is traced by ``torch.profiler``
 into a Chrome trace there.
@@ -29,6 +35,8 @@ import torch
 
 from outfitx_tpu_torch.core.config import TrainConfig
 from outfitx_tpu_torch.core.device import resolve_device
+from outfitx_tpu_torch.core.mesh import DATA_AXIS
+from outfitx_tpu_torch.parallel import gather_global, setup_parallel
 from outfitx_tpu_torch.train.checkpoint import (
     BestMetricTracker,
     CheckpointManager,
@@ -55,6 +63,7 @@ class Trainer(abc.ABC):
         self.run_mode = run_mode
         self.epoch = 0
         self.state = None  # TrainState, set by load_optimizer
+        self.par = None  # ParallelContext under a mesh, set by setup_mesh
         self.logger: Optional[logging.Logger] = None
         self.ckpt: Optional[CheckpointManager] = None
         self.best = BestMetricTracker(**self.best_metrics())
@@ -96,8 +105,10 @@ class Trainer(abc.ABC):
 
     # ------------------------------------------------------------ setup --
     def setup(self) -> None:
+        self.setup_mesh()
         self.setup_logger()
-        self.metrics_log = MetricsLogger(self.cfg.log_dir, self.model_name)
+        if self.is_writer:
+            self.metrics_log = MetricsLogger(self.cfg.log_dir, self.model_name)
         self.ckpt = CheckpointManager(self.cfg.checkpoint_dir, self.model_name)
         self.load_model()
         # Data before optimizer: the OneCycle horizon needs len(train_split).
@@ -105,12 +116,19 @@ class Trainer(abc.ABC):
         self.load_optimizer()
         self.hook_after_setup()
         self.log(f"device: {self.device}")
+        if self.par is not None:
+            self.log(
+                f"mesh: data={self.par.data} model={self.par.model} "
+                f"fsdp={self.par.fsdp}, backend {self.par.backend}"
+            )
 
     def setup_logger(self) -> None:
         self.logger = logging.getLogger(f"{self.model_name}.torch")
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False
-        if not self.logger.handlers:
+        if not self.is_writer:
+            self.logger.setLevel(logging.WARNING)
+        elif not self.logger.handlers:
             fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s")
             sh = logging.StreamHandler(sys.stderr)
             sh.setFormatter(fmt)
@@ -120,6 +138,46 @@ class Trainer(abc.ABC):
             fh = logging.FileHandler(log_dir / f"{self.model_name}.log")
             fh.setFormatter(fmt)
             self.logger.addHandler(fh)
+
+    def setup_mesh(self) -> None:
+        """This process's place in ``cfg.mesh`` (none on one device)."""
+        self.par = setup_parallel(self.cfg.mesh, self.device)
+        if self.par is not None:
+            self.device = self.par.device
+
+    @property
+    def is_writer(self) -> bool:
+        """Rank 0 (or the only process): the one that logs and writes."""
+        return self.par is None or self.par.rank == 0
+
+    def shard_model_params(self, model):
+        """Under a mesh, cut ``model``'s weights to this rank's blocks (pure
+        DP keeps them whole) and run it on its rows of each batch."""
+        if self.par is not None:
+            model.shard_(self.par)
+        return model
+
+    def full_params(self, module) -> Dict[str, Any]:
+        """``module``'s state dict with every split weight whole."""
+        if self.par is None:
+            return module.state_dict()
+        return self.par.full_state_dict(module)
+
+    def load_params(self, module, sd) -> None:
+        """Load a whole state dict onto ``module``'s live blocks."""
+        if self.par is not None:
+            sd = self.par.local_state_dict(module, sd)
+        module.load_state_dict(sd, strict=True)
+
+    def rows(self, batch):
+        """This rank's rows of a global batch (a dict of tensors)."""
+        return batch if self.par is None else self.par.batch_rows(batch)
+
+    def gather_rows(self, t):
+        """Every data rank's rows of ``t``, in row order (a collective)."""
+        if self.par is None:
+            return t
+        return gather_global(t, group=self.par.groups[DATA_AXIS])
 
     # -------------------------------------------------------------- run --
     def run(self) -> Any:
@@ -183,24 +241,30 @@ class Trainer(abc.ABC):
     def checkpoint_params(self) -> Dict[str, Any]:
         """What a checkpoint holds of the parameters, as
         ``CheckpointManager.save`` takes it."""
-        return {"params": self.state.model.state_dict()}
+        return {"params": self.full_params(self.state.model)}
 
     def load_checkpoint_params(self, payload: Dict[str, Any]) -> None:
         """The inverse of ``checkpoint_params``, from ``restore``'s
         payload."""
-        self.state.model.load_state_dict(payload["params"])
+        self.load_params(self.state.model, payload["params"])
 
     def _save(self, tag: str, *, with_optimizer: bool, sync: bool = False, **kwargs) -> None:
         """Save through the writer thread when ``cfg.async_saves``, unless
-        ``sync``."""
+        ``sync``. Under a mesh every rank gathers the whole state (a
+        collective) and rank 0 writes it."""
         model = self.state.model
+        full = self.par.full if self.par is not None else None
+        params = self.checkpoint_params()
+        opt_state = (
+            optimizer_tree(model, self.state.optimizer, full) if with_optimizer else None
+        )
+        if not self.is_writer:
+            return
         save = self.ckpt.save if sync or not self.cfg.async_saves else self.ckpt.save_async
         save(
             tag,
-            **self.checkpoint_params(),
-            opt_state=(
-                optimizer_tree(model, self.state.optimizer) if with_optimizer else None
-            ),
+            **params,
+            opt_state=opt_state,
             step=self.state.step,
             config=self.cfg,
             best=self.best.best,
@@ -229,7 +293,10 @@ class Trainer(abc.ABC):
         payload = self.ckpt.restore(tag_or_path)
         self.load_checkpoint_params(payload)
         if payload["opt_state"] is not None:
-            load_optimizer_tree(self.state.model, self.state.optimizer, payload["opt_state"])
+            local = self.par.local if self.par is not None else None
+            load_optimizer_tree(
+                self.state.model, self.state.optimizer, payload["opt_state"], local
+            )
             self.state.step = int(payload["meta"].get("step", 0))
         self.epoch = int(payload["meta"].get("epoch", -1)) + 1
         for name, value in payload["meta"].get("best", {}).items():
@@ -261,6 +328,10 @@ class Trainer(abc.ABC):
             ):
                 self._save("final", with_optimizer=True, sync=True, epoch=self.epoch)
                 self.log("saved final checkpoint")
+            if self.par is not None and exc_type is None:
+                import torch.distributed as dist
+
+                dist.barrier()  # rank 0's files exist before any rank goes on
             if pending_err is not None:
                 raise pending_err
         finally:

@@ -66,10 +66,13 @@ class AdamW:
 
     ``step()`` clips the gradients by their global norm (on the device, no
     host sync), takes one Adam step with decoupled weight decay at the
-    schedule's current rate, and counts it."""
+    schedule's current rate, and counts it. Under a mesh (``par``) the
+    parameters and moments are this rank's blocks, and the norm is that of
+    the whole gradient (``ParallelContext.grad_sq_norm``)."""
 
-    def __init__(self, params, cfg: OptimizerConfig, total_steps: int):
+    def __init__(self, params, cfg: OptimizerConfig, total_steps: int, par=None):
         self.params: List[torch.nn.Parameter] = [p for p in params if p.requires_grad]
+        self.par = par
         self.cfg = cfg
         self.schedule = make_schedule(cfg, total_steps)
         self.count = 0
@@ -89,7 +92,11 @@ class AdamW:
     def step(self) -> None:
         cfg = self.cfg
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+        if self.par is None:
+            sq = sum((g.float() * g.float()).sum() for g in grads)
+        else:
+            sq = self.par.grad_sq_norm(self.params, grads)
+        norm = torch.sqrt(sq)
         clip = norm >= cfg.clip_norm
         grads = [torch.where(clip, g / norm * cfg.clip_norm, g) for g in grads]
         lr = self.schedule(self.count)

@@ -274,8 +274,12 @@ class OriginalCPTrainer(Trainer):
         n_train = len(self._train_split) if self._train_split is not None else 0
         super_b = self.cfg.batch_size * self.cfg.accumulation_steps
         total_steps = max(n_train // super_b, 1) * self.cfg.n_epochs
-        optimizer = AdamW(self.net.parameters(), self.cfg.optimizer, total_steps)
-        self.state = TrainState.create(self.net, optimizer, self.cfg.seed)
+        # The mesh splits the set transformer; the encoder's heads (and its
+        # frozen towers) stay whole on every rank, their gradients summed
+        # over the data axis with the rest.
+        self.shard_model_params(self.model)
+        optimizer = AdamW(self.net.parameters(), self.cfg.optimizer, total_steps, par=self.par)
+        self.state = TrainState.create(self.net, optimizer, self.cfg.seed, par=self.par)
 
     def setup_data(self) -> None:
         if self._source is None or self._train_split is None:
@@ -311,10 +315,10 @@ class OriginalCPTrainer(Trainer):
                 "fc": _linear_tree(self.encoder.vision.fc),
                 "proj": _linear_tree(self.encoder.text.proj),
             }
-        return {"params": self.model.state_dict(), "enc_heads": heads}
+        return {"params": self.full_params(self.model), "enc_heads": heads}
 
     def load_checkpoint_params(self, payload) -> None:
-        self.model.load_state_dict(payload["params"])
+        self.load_params(self.model, payload["params"])
         heads = payload.get("enc_heads") or {}
         if heads:
             _load_linear(self.encoder.vision.fc, heads["fc"])
@@ -331,6 +335,10 @@ class OriginalCPTrainer(Trainer):
             yield [order[start + i * b : start + (i + 1) * b] for i in range(a)]
 
     def microbatch(self, split, sel: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The staged raw microbatch of rows ``sel`` (under a mesh, this
+        rank's block of them only)."""
+        if self.par is not None:
+            sel = self.par.rows(sel)
         return self.stage(
             split.item_rows[sel], mask=split.mask[sel], label=split.labels[sel]
         )
@@ -345,11 +353,15 @@ class OriginalCPTrainer(Trainer):
             )
             losses.append(out["loss"])
             scores.append(out["scores"].reshape(-1))
-            labels.append(split.labels[np.concatenate(sels)])
+            rows = [sel if self.par is None else self.par.rows(sel) for sel in sels]
+            labels.append(split.labels[np.concatenate(rows)])
         if not losses:
             return {}
+        labels = torch.as_tensor(np.concatenate(labels), device=scores[0].device)
         metrics = binary_classification_metrics(
-            torch.cat(scores).cpu().numpy(), np.concatenate(labels), from_logits=True
+            self.gather_rows(torch.cat(scores)).cpu().numpy(),
+            self.gather_rows(labels).cpu().numpy(),
+            from_logits=True,
         )
         metrics["loss"] = float(np.mean(torch.stack(losses).cpu().numpy(), dtype=np.float64))
         return metrics
@@ -361,8 +373,11 @@ class OriginalCPTrainer(Trainer):
             {"item_rows": split.item_rows, "mask": split.mask, "label": split.labels},
             batch_size=self.cfg.batch_size,
         ):
-            batch = self.stage(eb["item_rows"], mask=eb["mask"])
-            scores_all.append(original_cp_eval_step(self.net, batch).cpu().numpy())
+            local = self.rows({"item_rows": eb["item_rows"], "mask": eb["mask"]})
+            batch = self.stage(local["item_rows"], mask=local["mask"])
+            scores_all.append(
+                self.gather_rows(original_cp_eval_step(self.net, batch)).cpu().numpy()
+            )
             labels_all.append(eb["label"])
             valids.append(eb["valid"])
         if not scores_all:

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -19,15 +20,21 @@ class TrainState:
     optimizer: AdamW
     seed: int  # base of the dropout streams
     generator: torch.Generator  # dropout masks, on the model's device
+    # This process's place in the training mesh (parallel.ParallelContext);
+    # None on one device.
+    par: Optional[object] = None
 
     @classmethod
-    def create(cls, model: OutfitXModel, optimizer: AdamW, seed: int) -> "TrainState":
+    def create(
+        cls, model: OutfitXModel, optimizer: AdamW, seed: int, par=None
+    ) -> "TrainState":
         return cls(
             step=0,
             model=model,
             optimizer=optimizer,
             seed=seed,
             generator=torch.Generator(device=model.device),
+            par=par,
         )
 
     def dropout_generator(self, microbatch: int) -> torch.Generator:

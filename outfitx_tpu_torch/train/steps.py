@@ -10,6 +10,15 @@ the losses and gradients, scales both by 1/A (as the JAX package's
 its dropout masks from a fresh stream for (step, microbatch). The
 original-CP step takes its microbatches one at a time instead, raw items
 that its model encodes before the set transformer.
+
+Under a mesh (``state.par``) each rank takes its rows of every global
+microbatch (block d of ``data``, JAX's ``P("data")`` split) and its loss
+is its rows' share of the global mean: the focal loss is a sum over its
+rows divided by the global batch, and the ranking loss divides by the
+global valid-negative count and batch. The ranks' gradients then sum to
+the global batch's; they are all-reduced over the data axis once per
+optimizer step, after accumulation, and the reported loss is the global
+one. The returned scores and labels are this rank's rows.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Dict, Iterable, Iterator
 
 import torch
 
+from outfitx_tpu_torch.core.mesh import DATA_AXIS
 from outfitx_tpu_torch.losses import focal_loss, set_wise_ranking_loss
 from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
 from outfitx_tpu_torch.ops.retrieval import fitb_pick
@@ -50,7 +60,17 @@ def _accumulate(state: TrainState, loss_fn, microbatches: Iterable[Batch]):
     for p in state.optimizer.params:
         if p.grad is not None:
             p.grad.mul_(scale)
+    if state.par is not None:
+        state.par.reduce_gradients(state.optimizer.params)
+        total = state.par.all_reduce(total.reshape(1).clone(), DATA_AXIS)[0]
     return total * scale, aux
+
+
+def _focal(scores, labels, par, **kw):
+    """The focal loss, or this rank's share of the global batch's mean."""
+    if par is None:
+        return focal_loss(scores, labels, **kw)
+    return focal_loss(scores, labels, reduction="sum", **kw) / (scores.shape[0] * par.data)
 
 
 def _split(batch: Batch) -> Iterator[Batch]:
@@ -74,18 +94,21 @@ def cp_train_step(
 ) -> Dict[str, torch.Tensor]:
     """CP train step. batch: {'item_idx': (A,B,L) int32, 'mask': (A,B,L)
     bool, 'label': (A,B) float32}. Returns {'loss', 'scores' (A,B),
-    'labels' (A,B)}, on the device."""
+    'labels' (A,B)}, on the device (B: this rank's rows under a mesh)."""
+    par = state.par
 
     def loss_fn(model, mb, gen):
+        mb = mb if par is None else par.batch_rows(mb)
         scores = model.cp_forward(
             gather(catalog, mb["item_idx"]), mb["mask"], generator=gen
         )
-        loss = focal_loss(scores, mb["label"], alpha=alpha, gamma=gamma)
+        loss = _focal(scores, mb["label"], par, alpha=alpha, gamma=gamma)
         return loss, scores.detach()
 
     loss, scores = _accumulate(state, loss_fn, _split(batch))
     _apply(state)
-    return {"loss": loss, "scores": torch.stack(scores), "labels": batch["label"]}
+    labels = batch["label"] if par is None else par.rows(batch["label"], dim=1)
+    return {"loss": loss, "scores": torch.stack(scores), "labels": labels}
 
 
 def cir_train_step(
@@ -101,15 +124,28 @@ def cir_train_step(
     bool, True = padded negative. The target's text embedding is the
     second half of its catalog row."""
     d = catalog.shape[-1]
+    par = state.par
 
     def loss_fn(model, mb, gen):
+        norms = {}
+        if par is not None:
+            # the global normalisers, from the global microbatch every rank
+            # holds: valid negatives and rows of all ranks together
+            norms = {
+                "valid_count": (~mb["neg_mask"]).sum().float(),
+                "batch_size": mb["pos_idx"].shape[0],
+            }
+            mb = par.batch_rows(mb)
         pos = gather(catalog, mb["pos_idx"])  # (B, D)
         pred = model.cir_forward(
             gather(catalog, mb["item_idx"]), mb["mask"], pos[:, d // 2 :],
             generator=gen,
         )
         negs = gather(catalog, mb["neg_idx"])  # (B, K, D)
-        return set_wise_ranking_loss(pos, pred, negs, mb["neg_mask"], margin=margin), None
+        loss = set_wise_ranking_loss(
+            pos, pred, negs, mb["neg_mask"], margin=margin, **norms
+        )
+        return loss, None
 
     loss, _ = _accumulate(state, loss_fn, _split(batch))
     _apply(state)
@@ -128,11 +164,13 @@ def original_cp_train_step(
     transformer over their embeddings. Each microbatch: 'images'
     (B,L,3,S,S) uint8, 'input_ids' and 'attn' (B,L,T) int32, 'mask' (B,L)
     bool, 'label' (B,) float32, on the device. Returns {'loss', 'scores'
-    (A,B)}, on the device."""
+    (A,B)}, on the device. Under a mesh each microbatch holds this rank's
+    rows only: a rank stages and encodes nothing else."""
+    par = state.par
 
     def loss_fn(net, mb, gen):
         scores = net.cp_forward(mb, generator=gen)
-        loss = focal_loss(scores, mb["label"], alpha=alpha, gamma=gamma)
+        loss = _focal(scores, mb["label"], par, alpha=alpha, gamma=gamma)
         return loss, scores.detach()
 
     loss, scores = _accumulate(state, loss_fn, microbatches)

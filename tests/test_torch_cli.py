@@ -3,10 +3,10 @@ against the JAX package's (on click).
 
 Each command, given the same argv, hands its trainer (or runner, engine,
 exporter; replaced here by recorders) the configs the JAX CLI's
-``_build_cfg`` / ``_model_cfg`` build, field for field (the port has no
-``mesh`` and no ``remat`` fields: their options fail instead). ``fitb
---mode train-valid`` and the options of modules not yet ported fail with a
-message; ``export-torch`` runs for real at a tiny size; ``--help`` runs in
+``_build_cfg`` / ``_model_cfg`` build, field for field, the mesh layout
+among them (the port has no ``remat`` fields: ``--remat`` fails instead).
+``fitb --mode train-valid`` and the options of modules not yet ported fail
+with a message; ``export-torch`` runs for real at a tiny size; ``--help`` runs in
 a subprocess that imports neither JAX nor click.
 """
 
@@ -31,7 +31,7 @@ from outfitx_tpu_torch.models import state_dict_from_jax
 from outfitx_tpu_torch.models.export_torch import reference_state_dict
 from outfitx_tpu_torch.train.checkpoint import CheckpointManager
 
-JAX_ONLY_FIELDS = {"mesh", "remat", "remat_policy"}
+JAX_ONLY_FIELDS = {"remat", "remat_policy"}
 
 
 class Recorder:
@@ -135,6 +135,11 @@ ARGVS = [
      "--port", "1234", "--catalog-dtype", "bfloat16", "--spare-capacity", "8",
      "--quantize-model", "--exact-topk", "--max-rss-gb", "2"],
     ["export-torch", "--params", "P", "--out", "O", "--towers-from", "T"],
+    # the mesh options build MeshConfig field for field; --shard-catalog
+    # serves the row-sharded catalog
+    ["cp", "--mesh-data", "4"],
+    ["cir", "--mesh-model", "2", "--mesh-data", "2"],
+    ["demo", "--shard-catalog", "--synthetic"],
 ]
 
 
@@ -145,8 +150,6 @@ def test_command_builds_the_jax_configs(monkeypatch, capsys, argv):
     assert len(got) == len(want) > 0
     for (g_args, g_kw), (w_args, w_kw) in zip(got, want):
         g_kw = {k: v for k, v in g_kw.items() if k != "device"}
-        if argv[0] == "demo":  # no sharded catalog in the port (it fails)
-            w_kw = {k: v for k, v in w_kw.items() if k != "shard_catalog"}
         if argv[0] == "pes":  # the JAX runner takes params, the port weights
             assert w_kw.pop("params") is None
         assert _plain(g_args) == _plain(w_args)
@@ -168,10 +171,7 @@ def test_original_cp_envelope_and_devices(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv, words", [
     (["fitb", "--mode", "train-valid"], "test only"),
-    (["cp", "--mesh-data", "4"], "--mesh-data 4"),
-    (["cir", "--mesh-model", "2"], "--mesh-model 2"),
     (["cp", "--remat"], "--remat"),
-    (["demo", "--shard-catalog"], "--shard-catalog"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else a)
 def test_unsupported_options_fail_with_a_message(monkeypatch, capsys, argv, words):
     _install(monkeypatch, argv[0], "outfitx_tpu_torch")

@@ -667,8 +667,14 @@ def test_build_engine_options(tmp_path):
     assert len(eng.sample_cp(2)) == 2
     mock = app.build_engine(synthetic=True, mock=True, model_cfg=cfg)  # no device asked
     assert mock.mock and mock.cp_params is None and mock.pools is not None
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", shard_catalog=True)
+    # The row-sharded catalog (one shard on the CPU) answers as the
+    # unsharded engine does.
+    sharded = app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", shard_catalog=True)
+    plain = app.build_engine(synthetic=True, model_cfg=cfg, device="cpu")
+    assert sharded.mesh is not None and plain.mesh is None
+    ids = plain.sample_outfit(4)
+    assert sharded.cp_score(ids) == plain.cp_score(ids)
+    assert sharded.similar_items(ids[0], k=5) == plain.similar_items(ids[0], k=5)
     # The int8 model forward is ported: the flag reaches the engine.
     q8 = app.build_engine(synthetic=True, model_cfg=cfg, device="cpu", quantize_model=True)
     assert q8.quantize_model and type(q8.cp_model).__name__ == "QuantizedOutfitX"

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: nothing in ``outfitx_tpu_torch`` or in
 ``chip_smoke.py`` imports JAX, the JAX package, ``safetensors`` or
-``click`` (the port's CLI is on argparse)."""
+``click`` (the port's CLI is on argparse), and importing it starts no
+``torch.distributed`` process group."""
 
 import ast
 import pathlib
@@ -47,7 +48,8 @@ def test_port_files_found():
         "models/towers/resnet.py", "models/towers/minilm.py", "utils/__init__.py",
         "cli/__init__.py", "cli/__main__.py", "cli/main.py", "data/types.py",
         "data/processors.py", "models/export_torch.py", "train/fitb_trainer.py",
-        "train/original_cp_trainer.py",
+        "train/original_cp_trainer.py", "core/mesh.py", "parallel/__init__.py",
+        "ops/retrieval_sharded.py",
     ):
         assert module in scanned, module
 
@@ -81,6 +83,9 @@ def test_importing_the_whole_port_loads_no_jax():
         "import chip_smoke\n"
         "added = sorted(set(jaxy()) - set(before))\n"
         "assert not added, added\n"
+        "import torch.distributed as dist\n"
+        "assert 'outfitx_tpu_torch.parallel' in sys.modules\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "print('ok', len([m for m in sys.modules if m.startswith('outfitx_tpu_torch')]))\n"
     ) % (FORBIDDEN,)
     out = subprocess.run(

@@ -144,10 +144,7 @@ def test_resnet_sbert_waits_for_its_towers():
 def test_configs_match_the_jax_defaults():
     import dataclasses
 
-    assert dataclasses.asdict(PrecomputeConfig()) == {
-        k: v for k, v in dataclasses.asdict(JaxPrecomputeConfig()).items()
-        if k != "mesh"
-    }
+    assert dataclasses.asdict(PrecomputeConfig()) == dataclasses.asdict(JaxPrecomputeConfig())
     for enc_type in ("clip", "siglip", "resnet_sbert"):
         assert dataclasses.asdict(ItemEncoderConfig.for_type(enc_type)) == (
             dataclasses.asdict(JaxItemEncoderConfig.for_type(enc_type))

@@ -336,12 +336,23 @@ def test_build_engine_quantize_model_and_what_still_raises():
     with pytest.raises(ValueError, match="block"):
         build_engine(synthetic=True, model_cfg=cfg, device="cpu", quantize_model=True,
                      attn="block")
-    with pytest.raises(NotImplementedError, match="shard_catalog"):
-        build_engine(synthetic=True, model_cfg=cfg, device="cpu", quantize_model=True,
-                     shard_catalog=True)
+    # The int8 forward composes with the row-sharded catalog, as in JAX.
+    sharded = build_engine(synthetic=True, model_cfg=cfg, device="cpu", quantize_model=True,
+                           shard_catalog=True)
+    assert sharded.mesh is not None
+    assert sharded.cp_score(ids) == eng.cp_score(ids)
+    assert sharded.cir_top10(ids[:2], ids[2]) == eng.cir_top10(ids[:2], ids[2])
+    from outfitx_tpu_torch.core.mesh import MeshSpec, make_mesh
+
     data = make_synthetic(**DATA)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(model_cfg=pcfg, catalog=data.catalog, device="cpu",
-                      quantize_model=True, mesh=object())
+    sd = OutfitXModel(pcfg, device="cpu").state_dict()
+    common = dict(model_cfg=pcfg, cp_params=sd, cir_params=sd, device="cpu",
+                  quantize_model=True, warmup=False)
+    meshed = ServingEngine(catalog=make_synthetic(**DATA).catalog, **common,
+                           mesh=make_mesh(MeshSpec(data=4), devices=["cpu"] * 4))
+    single = ServingEngine(catalog=data.catalog, **common)
+    outfit = [int(i) for i in data.catalog.item_ids[:3]]
+    assert meshed.cp_score(outfit) == single.cp_score(outfit)
+    assert meshed.similar_items(outfit[0]) == single.similar_items(outfit[0])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_engine(synthetic=True, model_cfg=cfg, quantize_model=True)

@@ -162,6 +162,40 @@ def test_unknown_item_raises(engines):
         port.cp_score([1])
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["dense", "int8"])
+def test_mesh_engine_matches_jax(engines, tiny_cfg, quantized):
+    """The catalog row-sharded over 4 shards (one CPU device named 4
+    times): the JAX engine's answers, pools and whole-catalog routes."""
+    from outfitx_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    jax_eng, port, _, tdata = engines
+    meshed = ServingEngine(
+        model_cfg=port.model_cfg, catalog=make_synthetic(**DATA).catalog,
+        cp_params=port.cp_params, cir_params=port.cp_params, pools=port.pools,
+        device="cpu", warmup=False, quantized=quantized,
+        mesh=make_mesh(MeshSpec(data=4), devices=["cpu"] * 4),
+    )
+    outfit, in_category = _requests(tdata.catalog, 21)
+    o = outfit()
+    assert abs(meshed.cp_score(o) - jax_eng.cp_score(o)) <= TOL
+    for category in (3, 0):  # a pool, then the whole catalog
+        t = in_category(category)
+        if quantized and category == 0:  # the int8 route: vs the port's own
+            single = ServingEngine(
+                model_cfg=port.model_cfg, catalog=make_synthetic(**DATA).catalog,
+                cp_params=port.cp_params, cir_params=port.cp_params, pools=port.pools,
+                device="cpu", warmup=False, quantized=True,
+            )
+            _same_items(meshed.cir_top10(o, t), single.cir_top10(o, t))
+            continue
+        _same_items(meshed.cir_top10(o, t), jax_eng.cir_top10(o, t))
+    item = int(tdata.catalog.item_ids[7])
+    if not quantized:
+        _same_items(meshed.similar_items(item, k=5), jax_eng.similar_items(item, k=5))
+    cands = [in_category(2) for _ in range(4)]
+    assert meshed.fitb_pick(o, cands) == jax_eng.fitb_pick(o, cands)
+
+
 def test_device_defaults_to_cuda_and_raises_without_it(tiny_cfg):
     data = make_synthetic(**DATA)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -176,9 +210,8 @@ def test_device_defaults_to_cuda_and_raises_without_it(tiny_cfg):
         # The int8 forward is ported; its attn="block" route exists in
         # neither package.
         ({"quantize_model": True, "attn": "block"}, ValueError, "no attn='block' route"),
-        ({"mesh": object()}, NotImplementedError, "later slice"),
     ],
-    ids=["quantize_model", "mesh"],
+    ids=["quantize_model"],
 )
 def test_unported_routes_raise(tiny_cfg, option, error, match):
     data = make_synthetic(**DATA)
