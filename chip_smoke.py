@@ -59,7 +59,17 @@ Phases, each printing one JSON line:
             rule; saves are asynchronous (``async_saves``), the final
             checkpoint equals the live parameters; then the CP train step's
             time, outfits/s, peak memory, a profile by kernel and the
-            attention backward's device ms a step;
+            attention backward's device ms a step; (e) remat: the CP step
+            at B=3072 x A=4 with each policy ('full', 'masks', 'dots')
+            against the plain step from the same weights and dropout seed
+            (loss and every gradient bit-equal or within a bfloat16
+            rounding, exact launches: the layers' forward kernels launch
+            again in the backward), step ms and peak memory each, then a
+            'full' step at B=16,384 x A=1 beside the peak the plain step
+            would need there; (f) the CIR trainer's host assembly of one
+            epoch of 36,864 outfits on the native route (which must build)
+            and the python route, seconds an epoch and a step, each held
+            to the batch invariants;
 6. precompute  ``PrecomputeRunner`` with the SigLIP item encoder at full
             width (ViT-B/16 at 196 tokens, text at L=64, d=768, 12 layers,
             random weights from seed 0): 4,096 synthetic items at batch 2048
@@ -124,7 +134,10 @@ Phases, each printing one JSON line:
             gradient is not within the gradient check's tolerance of 0),
             then in bfloat16 the launches a rank and their shapes
             ((768,8,17,96) under model=2, (384,16,17,96) under data=2), the
-            collective bytes a step, step ms and peak memory a rank; and a
+            collective bytes a step, step ms and peak memory a rank; on the
+            FSDP meshes the step with remat against the plain step (loss,
+            the rank's gradients, launches, and exactly the recomputed
+            all-gathers and g all-reduces more collective bytes); and a
             one-rank NCCL group (the launcher's environment) training the
             CP trainer at B=3072 x A=4 for 3 steps, with its step time;
 12. timing  kernel, plain version and the PyTorch library call at the
@@ -373,6 +386,18 @@ FITB_CPU_QUESTIONS = 64
 OCP_B, OCP_A, OCP_STEPS = 350, 10, 2
 OCP_ITEMS = 2000
 OCP_CHECK_B, OCP_CHECK_A = 4, 2
+# Remat in the train phase: one CP step at the envelope under each policy,
+# from the plain step's weights and dropout seed, held against it to
+# REMAT_GRAD_REL of each gradient's largest element (a bfloat16 rounding);
+# timed over REMAT_TIMED_STEPS after one warm step; then one 'full' step
+# at a microbatch of REMAT_BIG_B outfits, which the plain step cannot hold.
+REMAT_POLICIES = ("full", "masks", "dots")
+REMAT_GRAD_REL = 2.0 ** -8
+REMAT_TIMED_STEPS = 3
+REMAT_BIG_B = 16384
+# The CIR trainer's host assembly of one epoch, native and python routes,
+# over the CP data's CIR split (36,864 outfits) at the CIR batch.
+HOST_ROUTE_BATCH = 512
 # The CLI phase: each command a child process, with this time limit.
 CLI_TIMEOUT_S = 300
 CLI_DEMO_AGE_S = 10.0
@@ -1401,8 +1426,12 @@ def _cir_trainer_run(cfg, data, cp_trainer, root):
     check(all(0.0 <= x <= 1.0 for x in recall.values()), f"recall {recall}")
     losses = [r["loss"] for r in train] + [valid["loss"]]
     check(all(math.isfinite(x) for x in losses), f"non-finite CIR loss {losses}")
+    from outfitx_tpu_torch import native
+
     return t, {
         "batch": tcfg.batch_size, "steps": t.state.step, "run_s": run_s,
+        # the samplers' 'auto' route, which the trainer takes
+        "sampler_route": "native" if native.available() else "python",
         "train_loss": train[-1]["loss"], "valid": valid,
         "pools": len(t._pools.pools), "pool_size": t._pools.pool_size,
         "masked_mha_fwd_launches": launches[0],
@@ -1506,6 +1535,207 @@ def _step_timing(cp_trainer, profile: bool = True):
     return out
 
 
+def _remat_launches(cfg, micro: int, remat: bool):
+    """(attention forward, backward, layernorm) launches of ``micro``
+    microbatches of a train step: under remat each layer's forward runs
+    again in the backward, its two LayerNorms and its attention with it
+    (the final LayerNorm, outside the layers, runs once)."""
+    n_layers = cfg.transformer.n_layers
+    again = n_layers if remat else 0
+    return {"masked_mha_fwd": (n_layers + again) * micro,
+            "masked_mha_bwd": n_layers * micro,
+            "layernorm": (_ln_per_forward(cfg) + 2 * again) * micro}
+
+
+def _grad_errors(grads, ref):
+    """Per-parameter max |g - ref| over max |ref|, and whether every
+    gradient is bit-equal to its reference."""
+    rel = {}
+    for n, g in grads.items():
+        scale = float(ref[n].abs().max())
+        rel[n] = float((g - ref[n]).abs().max()) / max(scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    return {
+        "bit_equal": all(torch.equal(g, ref[n]) for n, g in grads.items()),
+        "worst_grad": worst, "worst_grad_rel_err": rel[worst],
+    }
+
+
+def _remat_step(cfg, snapshot, seed, step, catalog, batch, timed: bool):
+    """One CP train step from ``snapshot`` (weights, dropout seed and step
+    of the plain run) with ``cfg``: its host ms (a first call at its
+    shapes), loss, gradients, launches; with
+    ``timed``, then the step's device ms (CUDA events, after one warm
+    step) and peak memory over the timed steps, beside the memory held
+    before them."""
+    from outfitx_tpu_torch.core.config import OptimizerConfig
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.train.optim import AdamW
+    from outfitx_tpu_torch.train.state import TrainState
+    from outfitx_tpu_torch.train.steps import cp_train_step
+
+    model = OutfitXModel(cfg, device="cuda", seed=0, trainable=True)
+    model.load_state_dict(snapshot)
+    state = TrainState.create(
+        model, AdamW(model.parameters(), OptimizerConfig(), 10), seed=seed
+    )
+    state.step = step
+
+    def run():
+        return cp_train_step(state, catalog, batch)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_ocp_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    res = {
+        "first_step_ms": (time.perf_counter() - t0) * 1e3,
+        "loss": float(out["loss"]), "launches": _ocp_counts(),
+        "first_step_peak_bytes": torch.cuda.max_memory_allocated(),
+        "resident_bytes": resident,
+        "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                  if p.grad is not None},
+    }
+    if timed:
+        res["ms"] = cuda_ms(run, REMAT_TIMED_STEPS, warmup=1)
+        torch.cuda.synchronize()
+        res["resident_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, state, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _remat_checks(cfg, cp_trainer):
+    """The CP step at B=TRAIN_B x A=TRAIN_A with each remat policy against
+    the plain step from the same weights, dropout seed and step: loss and
+    every gradient (bit-equal, or within REMAT_GRAD_REL), exact launches,
+    step ms and peak memory; then one 'full' step at B=REMAT_BIG_B x A=1
+    beside the peak the plain step would need there, scaled from its
+    measured activations."""
+    t = cp_trainer
+    snapshot = {n: v.detach().clone() for n, v in t.model.state_dict().items()}
+    seed, step = t.state.seed, t.state.step
+    batch = next(t._iter_train_batches(0))
+    out = {}
+    plain = _remat_step(cfg, snapshot, seed, step, t.catalog_dev, batch, timed=True)
+    want = _remat_launches(cfg, TRAIN_A, remat=False)
+    check(plain["launches"] == want, f"plain step launches {plain['launches']}, expected {want}")
+    check(math.isfinite(plain["loss"]), f"plain step loss {plain['loss']}")
+    ref = plain.pop("grads")
+    out["plain"] = plain
+    for policy in REMAT_POLICIES:
+        rcfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        got = _remat_step(rcfg, snapshot, seed, step, t.catalog_dev, batch, timed=True)
+        want = _remat_launches(cfg, TRAIN_A, remat=True)
+        check(got["launches"] == want,
+              f"remat {policy} launches {got['launches']}, expected {want}")
+        grads = got.pop("grads")
+        check(sorted(grads) == sorted(ref), f"remat {policy}: gradients of other parameters")
+        got.update(_grad_errors(grads, ref))
+        got["loss_abs_err"] = abs(got["loss"] - plain["loss"])
+        check(got["loss_abs_err"] <= REMAT_GRAD_REL * abs(plain["loss"]),
+              f"remat {policy}: loss {got['loss']} vs plain {plain['loss']}")
+        check(got["worst_grad_rel_err"] <= REMAT_GRAD_REL,
+              f"remat {policy}: gradient of {got['worst_grad']} off by "
+              f"{got['worst_grad_rel_err']} of its largest element")
+        out[policy] = got
+        del grads
+    del ref
+    torch.cuda.empty_cache()
+
+    # one 'full' step at a microbatch of REMAT_BIG_B outfits
+    s = t._train_dev
+    check(len(s["label"]) >= REMAT_BIG_B, "train split smaller than the big microbatch")
+    rows = {k: v[:REMAT_BIG_B][None] for k, v in s.items()}
+    big = _remat_step(dataclasses.replace(cfg, remat=True), snapshot, seed, step,
+                      t.catalog_dev, rows, timed=False)
+    big.pop("grads")
+    want = _remat_launches(cfg, 1, remat=True)
+    check(big["launches"] == want, f"remat B={REMAT_BIG_B} launches {big['launches']}, expected {want}")
+    check(math.isfinite(big["loss"]), f"remat B={REMAT_BIG_B} loss {big['loss']}")
+    activations = plain["peak_bytes"] - plain["resident_bytes"]
+    big["plain_peak_bytes_computed"] = (
+        big["resident_bytes"] + activations * REMAT_BIG_B / TRAIN_B
+    )
+    big["card_memory_bytes"] = torch.cuda.get_device_properties(0).total_memory
+    big["batch"] = REMAT_BIG_B
+    out["full_big_microbatch"] = big
+    del snapshot
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cir_invariants(split, catalog, batches, order, k):
+    """The CIR batches of one epoch (rows in ``order``'s outfits): shapes,
+    the pad row in padded slots, the positive an eligible member and the
+    partial outfit the others, negatives of the positive's semantic key,
+    never the positive, distinct, and padded only where the key's pool
+    has fewer than k others."""
+    b, length = HOST_ROUTE_BATCH, split.item_rows.shape[1]
+    for x in batches:
+        shapes = {key: v.shape for key, v in x.items()}
+        check(shapes == {"item_idx": (1, b, length), "mask": (1, b, length), "pos_idx": (1, b),
+                         "neg_idx": (1, b, k), "neg_mask": (1, b, k)}, f"CIR batch shapes {shapes}")
+    cat = lambda key: np.concatenate([x[key].reshape(len(x[key][0]), -1) for x in batches])
+    item, mask, neg, negm = cat("item_idx"), cat("mask"), cat("neg_idx"), cat("neg_mask")
+    pos = cat("pos_idx")[:, 0]
+    outfit = order[: len(pos)]
+    rows, lengths = split.item_rows[outfit], split.lengths[outfit]
+    members = np.arange(length)[None, :] < lengths[:, None]
+    check(bool((item[mask] == catalog.pad_row).all()), "padded slots hold other rows than the pad row")
+    check(bool(((~mask).sum(1) == lengths - 1).all()), "partial outfits of other lengths")
+    eligible = (rows == pos[:, None]) & split.pos_eligible[outfit] & members
+    check(bool(eligible.any(1).all()), "a positive that is no eligible member")
+    big = np.iinfo(np.int32).max
+    whole = np.sort(np.where(members, rows, big), axis=1)
+    parts = np.sort(np.concatenate([np.where(mask, big, item), pos[:, None]], axis=1), axis=1)
+    check(np.array_equal(parts[:, :length], whole), "partial outfit plus positive is not the outfit")
+    key = catalog.semantic_category
+    pool = np.bincount(key)[key[pos]]
+    check(bool(((~negm).sum(1) == np.minimum(k, pool - 1)).all()), "negatives padded wrongly")
+    check(bool((neg[negm] == 0).all()), "padded negatives not row 0")
+    check(bool(((key[neg] == key[pos][:, None]) | negm).all()), "a negative of another key")
+    check(bool(((neg != pos[:, None]) | negm).all()), "the positive drawn as its own negative")
+    srt = np.sort(np.where(negm, -1 - np.arange(k)[None, :], neg), axis=1)
+    check(bool((np.diff(srt, axis=1) != 0).all()), "a negative drawn twice")
+
+
+def _host_routes(data):
+    """The CIR trainer's host assembly of one epoch over the CP data's CIR
+    split, on the native route (which must build here) and the python
+    route: seconds an epoch and a step, each route's batches held to the
+    invariants. The two routes draw other streams and are not compared."""
+    from outfitx_tpu_torch import native
+    from outfitx_tpu_torch.data import sampler as S
+
+    native.load()  # raises with g++'s message
+    split, catalog = data.cir_train, data.catalog
+    seed, k = 42, 10
+    sampler = S.NegativeSampler(catalog, "easy")
+    order = S._epoch_rng(seed, 0, 1).permutation(len(split))
+    out = {"outfits": len(split), "batch": HOST_ROUTE_BATCH, "negatives": k}
+    for impl in ("native", "python"):
+        t0 = time.perf_counter()
+        batches = list(S.cir_train_batches(
+            split, catalog, batch_size=HOST_ROUTE_BATCH, accum_steps=1, epoch=0, seed=seed,
+            n_negatives=k, sample_mode="easy", max_len=split.item_rows.shape[1],
+            sampler=sampler, impl=impl,
+        ))
+        epoch_s = time.perf_counter() - t0
+        _cir_invariants(split, catalog, batches, order, k)
+        out[impl] = {"epoch_s": epoch_s, "steps": len(batches),
+                     "step_s": epoch_s / len(batches)}
+    out["python_over_native"] = out["python"]["epoch_s"] / out["native"]["epoch_s"]
+    return out
+
+
 def phase_train():
     from outfitx_tpu_torch.core.config import OutfitXConfig
     from outfitx_tpu_torch.data.synthetic import make_synthetic
@@ -1537,12 +1767,21 @@ def phase_train():
     bwd_kind = timing["train_step_profile"]["by_kind"].get("masked_mha_bwd", {})
     timing["masked_mha_bwd_ms_per_step"] = bwd_kind.get("device_ms", 0.0)
     timing["masked_mha_bwd_launches_per_step"] = bwd_kind.get("calls", 0)
+    t0 = time.perf_counter()
+    remat = _remat_checks(cfg, cp_trainer)
+    remat["seconds"] = time.perf_counter() - t0
+    remat_launches = Counter()
+    for policy in REMAT_POLICIES + ("full_big_microbatch",):
+        remat_launches.update(remat[policy]["launches"])
+    t0 = time.perf_counter()
+    host = _host_routes(cp_data)
+    host["seconds"] = time.perf_counter() - t0
     emit({
         "phase": "train",
         "d_embed": cfg.d_embed, "n_layers": cfg.transformer.n_layers,
         "catalog_items": cp_data.catalog.n_items, "data_s": data_s,
         "step_check": step_check, "cp_trainer": cp, "cir_trainer": cir,
-        "fitb": fitb, **timing,
+        "fitb": fitb, **timing, "remat": remat, "host_routes": host,
     })
     return {
         "train": {
@@ -1551,6 +1790,7 @@ def phase_train():
             "layernorm": cp["layernorm_launches"] + cir["layernorm_launches"],
         },
         "fitb": fitb_counts,
+        "train_remat": dict(remat_launches),
     }
 
 
@@ -3366,6 +3606,70 @@ def _mask_draw_ms(cfg, par):
     }
 
 
+def _recomputed_bytes(model, par, rows: int, micro: int) -> int:
+    """The collective bytes that remat adds to a step on this rank: one
+    more forward of the encoder layers a microbatch, so FSDP's all-gather
+    of this rank's block of each layer matrix split over 'data' and, on a
+    model axis, the g all-reduces of the rank's (rows, S, d) states in the
+    compute dtype: two a layer, or one without dropout, where the
+    recompute stops (checkpoint's early stop) before the FFN's g, whose
+    output no backward needs."""
+    from outfitx_tpu_torch.core.mesh import DATA_AXIS
+
+    cfg = model.cfg
+    gathered = 0
+    if par.fsdp and par.data > 1:
+        gathered = sum(
+            p.numel() * p.element_size() for n, p in model.named_parameters()
+            if n.startswith("transformer_encoder.layers.") and DATA_AXIS in p.mesh_axes
+        )
+    g = 0
+    if par.model > 1:
+        states = rows * (cfg.max_outfit_len + 1) * cfg.d_embed * model.compute_dtype.itemsize
+        g = (2 if cfg.transformer.dropout else 1) * cfg.transformer.n_layers * states
+    return micro * (gathered + g)
+
+
+def _par_remat(cfg, par, cat, batch, plain_bytes):
+    """The bfloat16 CP step at this mesh with remat ('full') against the
+    plain step from the same weights and dropout seed: the loss and this
+    rank's gradient blocks (bit-equal, or within REMAT_GRAD_REL), the
+    launches, and the collective bytes, exactly the plain step's plus the
+    recomputed forward collectives."""
+    from outfitx_tpu_torch.train.steps import cp_train_step
+
+    out, grads = {}, {}
+    for tag, c in (("plain", cfg), ("remat", dataclasses.replace(cfg, remat=True))):
+        model, state = _par_state(c, par)
+        _reset_ocp_counts()
+        moved = par.bytes_moved
+        loss = float(cp_train_step(state, cat, batch)["loss"])
+        torch.cuda.synchronize()
+        out[tag] = {"loss": loss, "launches": _ocp_counts(),
+                    "collective_bytes": par.bytes_moved - moved}
+        grads[tag] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                      if p.grad is not None}
+        if tag == "remat":
+            out["recomputed_bytes"] = _recomputed_bytes(model, par, batch["label"].shape[1] // par.data, 1)
+        del model, state
+    torch.cuda.empty_cache()
+    check(out["plain"]["collective_bytes"] == plain_bytes,
+          f"plain step bytes {out['plain']['collective_bytes']}, the counted step's {plain_bytes}")
+    want = plain_bytes + out["recomputed_bytes"]
+    check(out["remat"]["collective_bytes"] == want,
+          f"remat step bytes {out['remat']['collective_bytes']}, expected {want}")
+    for tag in ("plain", "remat"):
+        want = _remat_launches(cfg, 1, remat=tag == "remat")
+        check(out[tag]["launches"] == want, f"meshed {tag} launches {out[tag]['launches']}, expected {want}")
+    out.update(_grad_errors(grads["remat"], grads["plain"]))
+    out["loss_abs_err"] = abs(out["remat"]["loss"] - out["plain"]["loss"])
+    check(out["loss_abs_err"] <= REMAT_GRAD_REL * abs(out["plain"]["loss"]),
+          f"meshed remat loss {out['remat']['loss']} vs plain {out['plain']['loss']}")
+    check(out["worst_grad_rel_err"] <= REMAT_GRAD_REL,
+          f"meshed remat gradient of {out['worst_grad']} off by {out['worst_grad_rel_err']}")
+    return out
+
+
 def _parallel_mesh_worker(mesh):
     """One rank of a 2-rank mesh on the one card (gloo, CUDA tensors)."""
     import dataclasses as dc
@@ -3433,6 +3737,8 @@ def _parallel_mesh_worker(mesh):
     want_shape = [b, heads, cfg.max_outfit_len + 1, cfg.d_embed // cfg.transformer.n_heads]
     check(res["attention_shapes"] == [want_shape],
           f"{mesh}: attention at {res['attention_shapes']}, expected {want_shape}")
+    if par.fsdp:
+        res["remat"] = _par_remat(cfg, par, cat, cp, res["collective_bytes_per_step"])
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(PAR_TIMED_STEPS):
@@ -3529,6 +3835,8 @@ def phase_parallel():
         train[name] = ranks[0]
         for r in ranks:
             counts.update(r["launches"])
+            if "remat" in r:
+                counts.update(r["remat"]["remat"]["launches"])
     nccl = _run_ranks("nccl", 1)[0]
     counts.update(nccl["launches"])
     emit({
@@ -3575,6 +3883,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     smi = phase_env()
     phase_build()
     max_err = phase_kernels()
@@ -3631,6 +3940,7 @@ def main() -> int:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()
                   if name in counts) and any(name in c for c in by_path.values()),
               f"{name} was not launched on a main path that runs it")
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": [
         {
             "name": name,

@@ -17,9 +17,10 @@ layer (``data.processors``); the export to the reference's ``.pth``
 (``models.export_torch``); the command line, ``python -m
 outfitx_tpu_torch.cli``; and the device mesh (``core.mesh``, ``parallel``):
 the row-sharded serving catalog and data, tensor and FSDP parallel training
-on ``torch.distributed``, one process per mesh position. Not yet: ``remat``
-and the native host assembler. Every Pallas kernel of the JAX package has a
-hand-written CUDA counterpart under ``csrc/``.
+on ``torch.distributed``, one process per mesh position; activation
+recomputation (``OutfitXConfig.remat``); and the C++ host assembler of CIR
+batches (``native``), built with g++ at first use. Every Pallas kernel of
+the JAX package has a hand-written CUDA counterpart under ``csrc/``.
 
 Entry points run on the card (``device="cuda"``) and raise when there is
 none, unless the caller passes ``device="cpu"``.

@@ -8,8 +8,8 @@ command builds the same configs as it (``_build_cfg``, ``_model_cfg``).
 chooses the device and defaults to the card. ``--mesh-data`` and
 ``--mesh-model`` lay out the training mesh (``MeshConfig``), one process per
 position: launch the command under ``torchrun --nproc_per_node N``.
-``--remat``, whose module this package has not ported yet, fails with a
-message naming it rather than being ignored.
+``--remat`` recomputes the encoder layers' activations in the backward
+(``OutfitXConfig.remat``).
 """
 
 from __future__ import annotations
@@ -68,15 +68,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of epoch 1")
     p.add_argument("--remat", action="store_true",
-                   help="recompute the encoder layers' activations in the backward")
+                   help="checkpoint each encoder layer: keep its input and recompute "
+                   "its activations in the backward, for less memory a step")
     p.add_argument("--save-every", type=int, default=None,
                    help="save a rolling 'latest' resume checkpoint every N epochs")
     _add_device(p)
-
-
-def _check_ported(parser: argparse.ArgumentParser, args) -> None:
-    if args.remat:
-        parser.error("--remat: activation recomputation is not ported to PyTorch yet")
 
 
 def _resolve_mode(args, default: str = "train-valid") -> str:
@@ -110,7 +106,9 @@ def _build_cfg(cls, args, **extra):
 
 
 def _model_cfg(args) -> OutfitXConfig:
-    return OutfitXConfig(item_encoder=ItemEncoderConfig.for_type(args.encoder))
+    return OutfitXConfig(
+        item_encoder=ItemEncoderConfig.for_type(args.encoder), remat=bool(args.remat)
+    )
 
 
 def _emit(result) -> None:
@@ -357,7 +355,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spare-capacity", type=int, default=0,
                    help="reserve spare catalog rows for POST /api/add_items")
     p.add_argument("--shard-catalog", action="store_true",
-                   help="row-shard the catalog over the devices (not ported)")
+                   help="row-shard the catalog over ALL local devices and retrieve via "
+                   "per-shard top-k + merge (ops/retrieval_sharded.py); aggregate memory "
+                   "scales with the device count")
     p.add_argument("--max-rss-gb", type=float, default=None,
                    help="drain and exit 81 when host RSS exceeds this")
     p.add_argument("--max-age", dest="max_age_s", type=float, default=None,
@@ -380,8 +380,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     args.argv = argv  # pes --shards re-runs this command line per slice
-    if hasattr(args, "mesh_data"):
-        _check_ported(parser, args)
     return args.fn(args, parser)
 
 

@@ -4,15 +4,17 @@ dataclasses, with the same defaults).
 Here: the item encoder (which fixes the embedding width), the set
 transformer, the top-level ``OutfitXConfig``, the optimizer, the CP, CIR
 and FITB training configs, the precompute sweep's config and
-``MeshConfig``, the training configs' ``mesh`` layout. The JAX package's
-``remat`` options are not ported yet (an 80 GB card holds the activations
-at the training envelope).
+``MeshConfig``, the training configs' ``mesh`` layout. ``remat`` and
+``remat_policy`` recompute the encoder layers' activations in the backward
+(``models/outfit_transformer.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+REMAT_POLICIES = ("full", "masks", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +90,20 @@ class OutfitXConfig:
     # Parameters are stored in float32; the forward runs in bfloat16.
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # Checkpoint each encoder layer in training: keep only its input and
+    # recompute the rest in the backward.
+    remat: bool = False
+    # What a recomputed layer keeps from its forward when remat is on:
+    #   'full'  - nothing (the least memory);
+    #   'masks' - the dropout masks' random draws, which are not drawn again;
+    #   'dots'  - the outputs of its matrix products.
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {REMAT_POLICIES}, got {self.remat_policy!r}"
+            )
 
     @property
     def d_embed(self) -> int:

@@ -2,11 +2,13 @@
 candidate pools (this package's copy of ``outfitx_tpu/data/sampler.py``).
 
 Reproducibility is stateless: every epoch's shuffle and every example's
-negative draw derive from ``np.random.default_rng([seed, epoch, ...])``, so
-the same seed gives the same batches and pools as the JAX package's python
-and numpy routes. The JAX package's C++ assembler (``outfitx_tpu/native``),
-which its ``auto`` route picks when built, draws from its own stream and is
-not ported here.
+negative draw derive from ``np.random.default_rng([seed, epoch, ...])`` on
+the python and numpy routes, and from splitmix64 streams of (seed, outfit,
+epoch) on the native route (``outfitx_tpu_torch.native``, the C++
+assembler). The three CIR samplers take ``impl``: ``'auto'``, the default,
+is native where the library builds (g++), else numpy or python, as the
+JAX package's ``auto`` picks; each route gives the JAX package's same route
+the same arrays for the same seed.
 
 Curriculum negative sampling: 'easy' draws negatives from the same
 *semantic_category* as the positive, 'hard' from the same *category_id*;
@@ -17,11 +19,12 @@ pools with fewer than k candidates yield padded negatives flagged in
 from __future__ import annotations
 
 import dataclasses
-from collections import defaultdict
+from collections import OrderedDict, defaultdict
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from outfitx_tpu_torch import native
 from outfitx_tpu_torch.data.catalog import Catalog
 from outfitx_tpu_torch.data.splits import CPSplit, OutfitSplit, large_categories
 
@@ -130,12 +133,28 @@ def sample_negatives_batch(
     k: int,
     seed: int,
     epoch: int,
+    impl: str = "auto",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Negatives for a batch of fixed positives (the CIR eval loss):
-    grouped Gumbel-top-k in numpy, deterministic in (seed, epoch).
+    """Negatives for a batch of fixed positives (the CIR eval loss): one C
+    call (``'native'``) or grouped Gumbel-top-k in numpy (``'numpy'``),
+    each deterministic in (seed, epoch), on streams of their own;
+    ``'auto'`` is native where the library builds.
 
     Returns (neg_rows (n, k) int32, neg_mask (n, k) bool True=pad)."""
     pos_rows = np.asarray(pos_rows, dtype=np.int32)
+    if impl == "auto":
+        impl = "native" if native.available() else "numpy"
+    if impl == "native":
+        cache = getattr(sampler, "_native_batch", None)
+        if cache is None:
+            cache = sampler._native_batch = {}
+        nb = cache.get((k, seed))
+        if nb is None:
+            _, dense = np.unique(sampler.key_col, return_inverse=True)
+            nb = cache[(k, seed)] = native.NegativeBatchSampler(
+                dense.astype(np.int32), k=k, seed=seed
+            )
+        return nb.sample(pos_rows, epoch)
     n = len(pos_rows)
     rng = _epoch_rng(seed, epoch, 9)
     neg = np.zeros((n, k), dtype=np.int32)
@@ -178,6 +197,7 @@ def cir_train_batches(
     sample_mode: str = "easy",
     max_len: int = 16,
     sampler: Optional[NegativeSampler] = None,
+    impl: str = "auto",
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields CIR train super-batches {'item_idx' (A,B,L), 'mask' (A,B,L),
     'pos_idx' (A,B), 'neg_idx' (A,B,K), 'neg_mask' (A,B,K)}.
@@ -185,7 +205,20 @@ def cir_train_batches(
     Per example: a positive among the eligible members, the partial outfit
     is the remaining items (shuffled), negatives share the positive's
     category key. Pass a prebuilt ``sampler`` to avoid rebuilding pools
-    every epoch."""
+    every epoch (python route). ``impl``: ``'native'`` (the C++
+    assembler, outfits up to 64 items), ``'python'``, or ``'auto'`` (native
+    where the library builds); each deterministic in (seed, epoch), on
+    streams of their own."""
+    if impl == "auto":
+        impl = "native" if native.available() else "python"
+    if impl == "native":
+        yield from _cir_train_batches_native(
+            split, catalog,
+            batch_size=batch_size, accum_steps=accum_steps, epoch=epoch,
+            seed=seed, n_negatives=n_negatives, sample_mode=sample_mode,
+            max_len=max_len,
+        )
+        return
     if sampler is None:
         sampler = NegativeSampler(catalog, sample_mode)
     n = len(split)
@@ -222,16 +255,89 @@ def cir_train_batches(
         }
 
 
+# The native route's assemblers, least recently used first. Each holds
+# copies of its split and the catalog's key pools, so a process that
+# touches many (split, catalog) pairs (chained trainers, tests) keeps only
+# the last few.
+_NATIVE_ASSEMBLERS: OrderedDict = OrderedDict()
+_NATIVE_ASSEMBLERS_MAX = 4
+
+
+def _assembler(split, catalog, sample_mode: str, n_negatives: int, seed: int, max_len: int):
+    """The cached ``CIRAssembler`` of (split, catalog, mode, k, seed). An
+    entry holds its split and catalog and is used only for those very
+    objects: an ``id()`` reused after a collection names other data, and
+    its entry is dropped."""
+    key = (id(split), id(catalog), sample_mode, n_negatives, seed)
+    cached = _NATIVE_ASSEMBLERS.get(key)
+    if cached is not None:
+        if cached[0] is split and cached[1] is catalog:
+            _NATIVE_ASSEMBLERS.move_to_end(key)
+            return cached[2]
+        del _NATIVE_ASSEMBLERS[key]
+    key_col = catalog.semantic_category if sample_mode == "easy" else catalog.category_id
+    _, dense = np.unique(key_col, return_inverse=True)  # keys 0..K-1 for the pools
+    assembler = native.CIRAssembler(
+        split.item_rows[:, :max_len], split.lengths, split.pos_eligible[:, :max_len],
+        dense.astype(np.int32), pad_row=catalog.pad_row, k=n_negatives, seed=seed,
+    )
+    _NATIVE_ASSEMBLERS[key] = (split, catalog, assembler)
+    while len(_NATIVE_ASSEMBLERS) > _NATIVE_ASSEMBLERS_MAX:
+        _NATIVE_ASSEMBLERS.popitem(last=False)
+    return assembler
+
+
+def _cir_train_batches_native(
+    split, catalog, *, batch_size, accum_steps, epoch, seed, n_negatives,
+    sample_mode, max_len,
+) -> Iterator[Dict[str, np.ndarray]]:
+    assembler = _assembler(split, catalog, sample_mode, n_negatives, seed, max_len)
+    order = _epoch_rng(seed, epoch, 1).permutation(len(split))
+    super_b = batch_size * accum_steps
+    for start in range(0, len(split) - super_b + 1, super_b):
+        out = assembler.assemble(order[start : start + super_b], epoch)
+        lead = (accum_steps, batch_size)
+        yield {
+            "item_idx": out["item_idx"].reshape(*lead, -1),
+            "mask": out["mask"].reshape(*lead, -1),
+            "pos_idx": out["pos_idx"].reshape(lead),
+            "neg_idx": out["neg_idx"].reshape(*lead, n_negatives),
+            "neg_mask": out["neg_mask"].reshape(*lead, n_negatives),
+        }
+
+
 def cir_eval_queries(
     split: OutfitSplit,
     catalog: Catalog,
     *,
     seed: int,
     max_len: int = 16,
+    impl: str = "auto",
 ) -> Dict[str, np.ndarray]:
     """Deterministic eval queries: one query per outfit with a fixed
     (seeded) positive choice, and the positive's category_id for pool
-    routing."""
+    routing. ``impl``: ``'native'`` (one C call), ``'python'``, or
+    ``'auto'`` (native where the library builds, the split is not empty
+    and ``max_len`` is at most 64); streams of their own."""
+    n = len(split)
+    if impl == "auto":
+        impl = "native" if native.available() and n > 0 and max_len <= 64 else "python"
+    if impl == "native":
+        item_idx, mask, pos_idx = native.eval_assemble(
+            split.item_rows[:, :max_len], split.lengths, split.pos_eligible[:, :max_len],
+            pad_row=catalog.pad_row, seed=seed,
+        )
+    else:
+        item_idx, mask, pos_idx = _eval_queries_python(split, catalog, seed, max_len)
+    return {
+        "item_idx": item_idx,
+        "mask": mask,
+        "pos_idx": pos_idx,
+        "pos_category": catalog.category_id[pos_idx].astype(np.int32),
+    }
+
+
+def _eval_queries_python(split, catalog, seed: int, max_len: int):
     n = len(split)
     rng = _epoch_rng(seed, 0, 2)
     item_idx = np.full((n, max_len), catalog.pad_row, dtype=np.int32)
@@ -246,12 +352,7 @@ def cir_eval_queries(
         partial = np.delete(members, p)
         item_idx[i, : len(partial)] = partial
         mask[i, : len(partial)] = False
-    return {
-        "item_idx": item_idx,
-        "mask": mask,
-        "pos_idx": pos_idx,
-        "pos_category": catalog.category_id[pos_idx].astype(np.int32),
-    }
+    return item_idx, mask, pos_idx
 
 
 @dataclasses.dataclass

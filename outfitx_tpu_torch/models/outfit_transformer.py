@@ -36,15 +36,46 @@ global batch's mask at the full width and keeps this rank's rows (and, for
 the FFN hidden units, its columns), so a meshed run draws the masks of the
 one-rank run. A model that is not sharded runs the same path with
 ``parallel.SINGLE``, whose collectives and cuts are all the identity.
+
+Activation recomputation (``cfg.remat``, training with grad enabled only)
+runs each encoder layer under ``torch.utils.checkpoint`` (non-reentrant),
+as the JAX package runs each layer of its scan under ``jax.checkpoint``;
+the final LayerNorm stays outside. The backward runs the layer's forward
+again, its kernels and its collectives (FSDP's weight gathers, the model
+axis's g) included, on every rank in the same order. ``remat_policy``:
+- ``'full'`` keeps the layer's input only;
+- ``'masks'`` also keeps the dropout masks' random draws (the outputs of
+  the ops tagged ``nondeterministic_seeded``, JAX's ``dropout_mask``
+  name), which the recompute then takes instead of drawing;
+- ``'dots'`` also keeps the outputs of the products autograd records
+  (``mm``, ``addmm``, ``bmm``, ``baddbmm`` with grad enabled), as
+  ``dots_saveable``. The attention and LayerNorm kernels launch inside
+  ``torch.autograd.Function``s, where grad is off and a dispatch mode sees
+  only their output's allocation: they are recomputed under every policy,
+  as ``dots_saveable`` recomputes a ``pallas_call``, and no policy keeps an
+  allocation whose contents a launch writes afterwards.
+The selective policies go through ``create_selective_checkpoint_contexts``.
+Dropout draws from an explicit generator, which checkpoint's
+``preserve_rng_state`` does not restore: each layer snapshots the
+generator's state when it starts and draws from a clone set to that state,
+in its forward and again in its recompute, so both see the same masks; the
+shared generator then takes the clone's end state, as if the layer had
+drawn from it (a CUDA generator's state is its seed and offset).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from outfitx_tpu_torch.core import dtypes
 from outfitx_tpu_torch.core import rng as rng_ops
@@ -196,6 +227,62 @@ class _EncoderLayer(nn.Module):
         return x
 
 
+_aten = torch.ops.aten
+# Allocations: a kernel's wrapper fills its output after allocating it, so
+# a kept allocation would be an output from the forward, kept alive.
+_ALLOCATIONS = frozenset({
+    _aten.empty.memory_format, _aten.empty_like.default, _aten.empty_strided.default,
+    _aten.new_empty.default, _aten.new_empty_strided.default,
+})
+_PRODUCTS = frozenset({
+    _aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default,
+})
+
+
+def _keeps(policy: str, op) -> bool:
+    """Whether a recomputed layer keeps ``op``'s output under ``policy``."""
+    if policy == "masks":
+        return torch.Tag.nondeterministic_seeded in op.tags
+    return op in _PRODUCTS and torch.is_grad_enabled()  # 'dots'
+
+
+def _selective(policy: str):
+    """checkpoint's ``context_fn`` for a selective policy; None for 'full'."""
+    if policy == "full":
+        return None
+
+    def decide(ctx, op, *args, **kwargs):
+        if op in _ALLOCATIONS:
+            return CheckpointPolicy.MUST_RECOMPUTE
+        if _keeps(policy, op):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, decide)
+
+
+def _recomputed(layer, x, pad_mask, gen, par, context_fn):
+    """``layer`` under non-reentrant checkpoint, its dropout drawn from a
+    clone of ``gen`` set to ``gen``'s state at the start, in the forward
+    and in the recompute; ``gen`` leaves with the forward's end state."""
+    start = None if gen is None else gen.get_state()
+    clones = []
+
+    def run(x):
+        clone = None
+        if start is not None:
+            clone = torch.Generator(device=gen.device)
+            clone.set_state(start)
+            clones.append(clone)
+        return layer(x, pad_mask, clone, par)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
+    if start is not None:
+        gen.set_state(clones[0].get_state())
+    return y
+
+
 class _Encoder(nn.Module):
     def __init__(self, cfg: OutfitXConfig, attn: str = "mha"):
         super().__init__()
@@ -203,10 +290,16 @@ class _Encoder(nn.Module):
             _EncoderLayer(cfg, attn) for _ in range(cfg.transformer.n_layers)
         )
         self.norm = _LayerNorm(cfg.d_embed) if cfg.transformer.final_norm else None
+        self.remat = cfg.remat
+        self.remat_context = _selective(cfg.remat_policy)
 
     def forward(self, x, pad_mask, gen, par):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, pad_mask, gen, par)
+            if remat:
+                x = _recomputed(layer, x, pad_mask, gen, par, self.remat_context)
+            else:
+                x = layer(x, pad_mask, gen, par)
         if self.norm is not None:
             x = self.norm(x)
         return x

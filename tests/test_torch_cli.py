@@ -4,9 +4,8 @@ against the JAX package's (on click).
 Each command, given the same argv, hands its trainer (or runner, engine,
 exporter; replaced here by recorders) the configs the JAX CLI's
 ``_build_cfg`` / ``_model_cfg`` build, field for field, the mesh layout
-among them (the port has no ``remat`` fields: ``--remat`` fails instead).
-``fitb --mode train-valid`` and the options of modules not yet ported fail
-with a message; ``export-torch`` runs for real at a tiny size; ``--help`` runs in
+and ``--remat`` among them. ``fitb --mode train-valid`` fails with a
+message; ``export-torch`` runs for real at a tiny size; ``--help`` runs in
 a subprocess that imports neither JAX nor click.
 """
 
@@ -31,7 +30,7 @@ from outfitx_tpu_torch.models import state_dict_from_jax
 from outfitx_tpu_torch.models.export_torch import reference_state_dict
 from outfitx_tpu_torch.train.checkpoint import CheckpointManager
 
-JAX_ONLY_FIELDS = {"remat", "remat_policy"}
+JAX_ONLY_FIELDS = set()
 
 
 class Recorder:
@@ -140,6 +139,8 @@ ARGVS = [
     ["cp", "--mesh-data", "4"],
     ["cir", "--mesh-model", "2", "--mesh-data", "2"],
     ["demo", "--shard-catalog", "--synthetic"],
+    # both CLIs set remat=True
+    ["cp", "--remat"],
 ]
 
 
@@ -157,6 +158,8 @@ def test_command_builds_the_jax_configs(monkeypatch, capsys, argv):
     if argv[0] in ("cp", "cir", "fitb", "original-cp"):
         cfg = got[0][0][0]
         assert isinstance(cfg, tcfg.TrainConfig) and cfg.async_saves
+    if argv[0] in ("cp", "cir", "fitb"):
+        assert got[0][0][1].remat == ("--remat" in argv)
 
 
 def test_original_cp_envelope_and_devices(monkeypatch, capsys):
@@ -171,7 +174,6 @@ def test_original_cp_envelope_and_devices(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv, words", [
     (["fitb", "--mode", "train-valid"], "test only"),
-    (["cp", "--remat"], "--remat"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else a)
 def test_unsupported_options_fail_with_a_message(monkeypatch, capsys, argv, words):
     _install(monkeypatch, argv[0], "outfitx_tpu_torch")
@@ -182,8 +184,6 @@ def test_unsupported_options_fail_with_a_message(monkeypatch, capsys, argv, word
     msg = capsys.readouterr().err
     assert words in msg, msg
     assert not Recorder.calls
-    if argv[0] != "fitb":
-        assert "not ported" in msg
 
 
 def test_export_torch_runs(tmp_path, capsys):

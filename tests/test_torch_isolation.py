@@ -4,7 +4,9 @@
 ``torch.distributed`` process group."""
 
 import ast
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -49,7 +51,7 @@ def test_port_files_found():
         "cli/__init__.py", "cli/__main__.py", "cli/main.py", "data/types.py",
         "data/processors.py", "models/export_torch.py", "train/fitb_trainer.py",
         "train/original_cp_trainer.py", "core/mesh.py", "parallel/__init__.py",
-        "ops/retrieval_sharded.py",
+        "ops/retrieval_sharded.py", "native/__init__.py",
     ):
         assert module in scanned, module
 
@@ -94,6 +96,34 @@ def test_importing_the_whole_port_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_importing_the_native_assembler_builds_nothing(tmp_path):
+    """``outfitx_tpu_torch.native`` builds its library at first use: its
+    import (and the sampler's and the CIR trainer's) starts no process (no
+    g++) and writes nothing. Run on a copy of the package, whose build
+    directory no other test touches."""
+    shutil.copytree(ROOT / "outfitx_tpu_torch", tmp_path / "outfitx_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **kw):\n"
+        "    raise AssertionError(f'a process was started: {a}')\n"
+        "subprocess.run = subprocess.Popen = subprocess.call = refuse\n"
+        "from outfitx_tpu_torch import native\n"
+        "import outfitx_tpu_torch.data.sampler\n"
+        "import outfitx_tpu_torch.train.cir_trainer\n"
+        "assert native._lib is None and native._error is None\n"
+        "print(native.BUILD_DIR)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-B", "-c", code], cwd=tmp_path, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(tmp_path)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(tmp_path / "build" / "outfitx_tpu_torch")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["outfitx_tpu_torch"]
+    assert not list(tmp_path.rglob("*.so"))
 
 
 def test_importing_the_whole_port_loads_no_pil_and_no_transformers():

@@ -9,8 +9,11 @@ and one CIR step with the same dropout masks injected into every package
 shows), a dropout-on CP step with the port's own generators, a step whose
 clip is active, a resume from a JAX checkpoint of sharded parameters, and
 a CP -> CIR -> FITB chain of the real trainers whose checkpoints the JAX
-package reads. Each case is compared here with the port's one-rank run in
-this process (1e-5) and, where given, with JAX (1e-4).
+package reads, and the dropout-on CP step again with remat under each
+policy. Each case is compared here with the port's one-rank run in this
+process (1e-5) and, where given, with JAX (1e-4); the remat steps with the
+same mesh's plain step, bit for bit, and their collective bytes with the
+plain step's plus the recomputed forward collectives.
 """
 
 import json
@@ -106,7 +109,7 @@ def _mask_arrays(b, s, d, ffn, seed=3):
 
 
 _WORKER = r'''
-import json, os, sys
+import dataclasses, json, os, sys
 import numpy as np
 import torch
 
@@ -149,8 +152,8 @@ def inject():
     trng.keep_mask = lambda gen, rate, shape, device: (torch.from_numpy(m(shape)), KEEP)
 
 
-def fresh(clip=1.0):
-    model = OutfitXModel(cfg, device="cpu", trainable=True)
+def fresh(clip=1.0, model_cfg=cfg):
+    model = OutfitXModel(model_cfg, device="cpu", trainable=True)
     model.load_state_dict(sd0)
     model.shard_(par)
     opt = AdamW(model.parameters(), tcfg.OptimizerConfig(learning_rate=1e-3, clip_norm=clip), 10, par=par)
@@ -178,8 +181,15 @@ model, state = fresh()
 inject()
 record("cir", model, cir_train_step(state, catalog, batch("cir.")))
 trng.keep_mask = real_keep_mask
-model, state = fresh()
-record("dropout", model, cp_train_step(state, catalog, batch("cp.")))
+for tag, model_cfg in [("dropout", cfg)] + [
+    ("remat_" + p, dataclasses.replace(cfg, remat=True, remat_policy=p))
+    for p in ("full", "masks", "dots")
+]:
+    model, state = fresh(model_cfg=model_cfg)
+    moved = par.bytes_moved
+    out = cp_train_step(state, catalog, batch("cp."))
+    results[tag + "/bytes"] = par.bytes_moved - moved
+    record(tag, model, out)
 model, state = fresh(clip=1e-3)
 out = cp_train_step(state, catalog, batch("cp."))
 grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.optimizer.params]
@@ -598,6 +608,41 @@ def test_dropout_on_meshed_step_equals_one_rank(setup, name):
     np.testing.assert_allclose(got["dropout/loss"], single["dropout/loss"], atol=1e-6, rtol=1e-5)
     assert abs(got["dropout/loss"] - got["cp/loss"]) > 1e-4  # other masks than injected
     _assert_close(got, single, "dropout/param/", atol=1e-5, rtol=1e-5, d=setup["cfg"].d_embed)
+
+
+def _recomputed_bytes(cfg, mesh, a):
+    """The collective bytes of one forward of the encoder layers over
+    ``a`` microbatches of B rows, as one rank counts them: FSDP's
+    all-gather of its block of the four layer matrices (float32) and the
+    model axis's two g all-reduces of its rows' (B/data, S, d) states (with
+    dropout on: without, the recompute stops before the second)."""
+    data, model, fsdp = mesh
+    d, ffn, s = cfg.d_embed, cfg.transformer.d_ffn, cfg.max_outfit_len + 1
+    per_layer = 0
+    if fsdp and data > 1:
+        per_layer += (4 * d * d + 2 * ffn * d) // (data * model) * 4
+    if model > 1:
+        per_layer += (2 if cfg.transformer.dropout else 1) * (B // data) * s * d * 4
+    return a * cfg.transformer.n_layers * per_layer
+
+
+@pytest.mark.parametrize("policy", ["full", "masks", "dots"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_meshed_remat_step_equals_the_plain_step(setup, name, policy):
+    """The dropout-on CP step with remat on each rank of the mesh: the
+    loss, the whole gradients and the updated parameters equal the same
+    mesh's plain step bit for bit (the recompute redoes the same
+    arithmetic and collectives on the same masks), and the step moves
+    exactly the recomputed forward collectives more."""
+    tag = "remat_" + policy
+    extra = _recomputed_bytes(setup["cfg"], MESHES[name], A)
+    assert extra > 0
+    for res in setup["meshed"][name]:
+        assert res[tag + "/loss"] == res["dropout/loss"]
+        for key in res:
+            if key.startswith(("dropout/grad/", "dropout/param/")):
+                np.testing.assert_array_equal(res[tag + key[len("dropout"):]], res[key], err_msg=key)
+        assert res[tag + "/bytes"] == res["dropout/bytes"] + extra
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))

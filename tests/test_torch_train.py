@@ -6,10 +6,10 @@ The same numpy inputs and the same initial weights (through
 optax (1e-6 relative), dropout in train mode with the same keep masks
 injected into both (1e-4), one CP and one CIR train step with A=2
 (gradients 1e-5 abs and 1e-4 rel), the host samplers (equal), and the CP
-and CIR trainers over two epochs (1e-4; recall equal). Dropout masks are
-not compared bit for bit: the two frameworks' generators differ. The JAX
-samplers are held on their python and numpy routes: the C++ assembler
-draws from a stream of its own and is not ported.
+and CIR trainers over two epochs (1e-4; recall equal), the CIR trainers both on
+the python and numpy routes and on their default routes (the C++ assembler
+where g++ builds it, in both packages). Dropout masks are not compared bit
+for bit: the two frameworks' generators differ.
 """
 
 import dataclasses
@@ -36,6 +36,7 @@ from outfitx_tpu.train.optim import make_optimizer
 from outfitx_tpu.train.optim import make_schedule as jax_schedule
 from outfitx_tpu.train.state import TrainState as JaxState
 from outfitx_tpu.train.steps import make_cir_train_step, make_cp_train_step
+from outfitx_tpu_torch import native as tnative
 from outfitx_tpu_torch.core import config as tcfg
 from outfitx_tpu_torch.core import rng as trng
 from outfitx_tpu_torch.data import sampler as tsampler
@@ -260,9 +261,10 @@ def synth():
 
 @pytest.fixture()
 def python_routes(monkeypatch):
-    """The JAX samplers' python and numpy routes (the C++ assembler that
-    its 'auto' route prefers has its own stream)."""
+    """Both packages' samplers on their python and numpy routes (the C++
+    assembler that their 'auto' routes prefer has streams of its own)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def test_samplers_match_jax(synth, python_routes):
@@ -529,6 +531,25 @@ def test_cir_trainer_warm_starts_from_port_checkpoint_and_matches_jax(
     """Two epochs across the curriculum switch (easy, then hard), recall
     every epoch, both trainers warm-started from the port's CP
     checkpoint."""
+    t = _cir_trainers_match(cp_runs, synth, tmp_path)
+    # Best checkpoints only after the switch: saved at epoch 1.
+    assert t.ckpt.exists("best_recall@1")
+    meta = t.ckpt.restore("best_recall@1")["meta"]
+    assert meta["epoch"] == 1
+
+
+def test_cir_trainer_on_default_routes_matches_jax(cp_runs, synth, tmp_path):
+    """Both CIR trainers with their samplers' default routes, which take
+    the C++ assembler in both packages where g++ builds it: the same
+    batches, negatives and eval queries. (The CP sampler has one route, so
+    ``test_cp_trainer_matches_jax`` runs both CP trainers on theirs.)"""
+    assert tnative.available() == native.available()
+    _cir_trainers_match(cp_runs, synth, tmp_path)
+
+
+def _cir_trainers_match(cp_runs, synth, tmp_path):
+    """Both CIR trainers, two epochs from the port's CP checkpoint: losses
+    to 1e-4 and recall equal. Returns the port's trainer."""
     jd, td = synth
     cfg = cp_runs["cfg"]
     warm = str(cp_runs["ckpt"].path("best_auc"))
@@ -575,10 +596,7 @@ def test_cir_trainer_warm_starts_from_port_checkpoint_and_matches_jax(
             assert len(recall) == 6
             for k in recall:
                 assert got[epoch][k] == want[epoch][k], (epoch, k)
-    # Best checkpoints only after the switch: saved at epoch 1.
-    assert t.ckpt.exists("best_recall@1")
-    meta = t.ckpt.restore("best_recall@1")["meta"]
-    assert meta["epoch"] == 1
+    return t
 
 
 @pytest.mark.parametrize("trainer", [CPTrainer, CIRTrainer])
