@@ -45,7 +45,14 @@ Phases, each printing one JSON line:
             an int8 engine (``quantize_model=True``, the W8A8 forward) on
             the same catalog: CP within 0.05 of the bfloat16 engine, CIR
             top-10 overlap of 7 in 10 on average, FITB in range, 6
-            attention and 12 LayerNorm launches a forward;
+            attention and 12 LayerNorm launches a forward; then the
+            default engine's CP and CIR weights written as checkpoints from
+            before the QKV fusion (``best_auc`` and ``best_recall@1`` with
+            per-projection wq/wk/wv and bq/bk/bv) and an engine built from
+            them (``build_engine(checkpoint_dir=...)``): weights, CP scores
+            and CIR top-10 answers bit-equal to the default engine's, 6
+            attention and 12 LayerNorm launches a forward; the seconds the
+            writes, the restore and the build took, on a line of its own;
 5. train    (a) one CP train step at full width (B=64, A=2, bf16) against
             the same step on the CPU in float32 from the same weights;
             (b) ``CPTrainer`` at the reference envelope (B=3072, A=4,
@@ -1156,6 +1163,92 @@ def _int8_route(cfg, reqs, got):
     }
 
 
+def _save_legacy(path: pathlib.Path, sd) -> None:
+    """An ``OutfitXModel`` state dict as a checkpoint from before the QKV
+    fusion: the JAX tree (``jax_params_from_state_dict``) with ``wqkv`` and
+    ``bqkv`` split back into per-projection ``wq``/``wk``/``wv`` and
+    ``bq``/``bk``/``bv``, written in the ``state.npz`` format."""
+    from outfitx_tpu_torch.models.from_jax import jax_params_from_state_dict
+    from outfitx_tpu_torch.train.checkpoint import CheckpointManager, _flatten
+
+    tree = jax_params_from_state_dict(sd)
+    attn = tree["layers"]["attn"]
+    wqkv, bqkv = attn.pop("wqkv"), attn.pop("bqkv")  # (L, d, 3, d), (L, 3, d)
+    for j, n in enumerate("qkv"):
+        attn[f"w{n}"], attn[f"b{n}"] = wqkv[:, :, j], bqkv[:, j]
+    leaves: list = []
+    skeleton = _flatten({"params": tree}, leaves)
+    CheckpointManager._write(path, {
+        "skeleton": skeleton,
+        "specs": [[list(x.shape), str(x.dtype)] for x in leaves],
+        "leaves": leaves,
+        "meta": {"step": 0, "epoch": 0, "metrics": {}},
+    })
+
+
+def _legacy_route(cfg, reqs, gpu, got):
+    """An engine built from legacy-layout (pre-QKV-fusion) ``best_auc`` and
+    ``best_recall@1`` checkpoints of the default engine's weights: its
+    set-transformer weights, CP scores and CIR top-10 answers bit-equal to
+    the default engine's (``got``: the same weights through the same
+    kernels), and exactly 6 ``masked_mha_fwd`` and 12 ``layernorm``
+    launches a forward."""
+    from outfitx_tpu_torch.models.from_jax import load_jax_checkpoint
+    from outfitx_tpu_torch.ops.attention import masked_mha
+    from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.serve.app import build_engine
+
+    root = ROOT / "build" / "chip_smoke" / "legacy_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {"cp": root / f"{cfg.model_name}-cp" / "best_auc",
+            "cir": root / f"{cfg.model_name}-cir" / "best_recall@1"}
+    t0 = time.perf_counter()
+    for task, path in dirs.items():
+        _save_legacy(path, getattr(gpu, f"{task}_params"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path in dirs.values():
+        load_jax_checkpoint(path)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = build_engine(synthetic=True, model_cfg=cfg, checkpoint_dir=str(root), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(engine.cir_model is not engine.cp_model,
+          "legacy checkpoints: the engine did not load its CIR weights apart")
+    for attr in ("cp_model", "cir_model"):
+        a, b = getattr(engine, attr).state_dict(), getattr(gpu, attr).state_dict()
+        check(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in b),
+              f"legacy checkpoints: the {attr} weights differ from the fused engine's")
+    engine.pools.pools.pop(0)  # the same routes as the default engine
+    torch.cuda.synchronize()
+    masked_mha.launches = layer_norm.launches = 0
+    legacy = _serve(engine, reqs)
+    torch.cuda.synchronize()
+    launches, ln_launches = masked_mha.launches, layer_norm.launches
+    forwards = _expected_forwards(engine, reqs)
+    check(launches == cfg.transformer.n_layers * forwards
+          and ln_launches == _ln_per_forward(cfg) * forwards,
+          f"legacy checkpoints: {launches} masked_mha_fwd and {ln_launches} layernorm "
+          f"launches for {forwards} forwards")
+    check(legacy["cp"] == got["cp"] and list(legacy["cp_batch"]) == list(got["cp_batch"]),
+          "legacy checkpoints: CP scores differ from the fused engine's")
+    check(legacy["cir"] == got["cir"] and legacy["cir_batch"] == got["cir_batch"],
+          "legacy checkpoints: CIR top-10 answers differ from the fused engine's")
+    check(legacy["fitb"] == got["fitb"] and legacy["sim"] == got["sim"],
+          "legacy checkpoints: FITB picks or similar items differ from the fused engine's")
+    shutil.rmtree(root, ignore_errors=True)
+    result = {
+        "phase": "serve_legacy_checkpoints",
+        "checkpoints_write_s": write_s, "restore_s": restore_s,
+        "engine_build_s": build_s, "forwards": forwards,
+        "masked_mha_launches": launches, "layernorm_launches": ln_launches,
+        "weights_and_answers_bit_equal": True,
+    }
+    emit(result)
+    return result
+
+
 def phase_serve():
     from outfitx_tpu_torch.core.config import OutfitXConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
@@ -1243,11 +1336,14 @@ def phase_serve():
         "attn_block_route": block,
         "int8_route": int8,
     })
+    legacy = _legacy_route(cfg, reqs, gpu, got)
     return gpu, q8_engine, {
         "serve": {"masked_mha_fwd": launches, "layernorm": ln_launches,
                   "attn_block": block["attn_block_launches"]},
         "serve_int8": {"masked_mha_fwd": int8["masked_mha_launches"],
                        "layernorm": int8["layernorm_launches"]},
+        "serve_legacy": {"masked_mha_fwd": legacy["masked_mha_launches"],
+                         "layernorm": legacy["layernorm_launches"]},
     }
 
 

@@ -6,7 +6,10 @@
 transposed to torch's (out, in). ``load_jax_checkpoint`` reads a checkpoint
 directory written by the JAX package's ``CheckpointManager`` (``state.npz``
 holding ``leaf_{i}`` byte buffers, ``tree.json`` holding the tree and each
-leaf's shape and dtype) with numpy alone. ``jax_params_from_state_dict``
+leaf's shape and dtype) with numpy alone, and ``migrate_legacy_attn``
+stacks the per-projection attention of checkpoints written before the QKV
+fusion into the fused layout as it reads them, as the JAX manager's
+``restore`` does. ``jax_params_from_state_dict``
 is the inverse of ``state_dict_from_jax``: the port's checkpoints store
 parameters in the JAX tree layout (``train/checkpoint.py``).
 ``item_encoder_state_dict_from_jax`` maps the item encoder's tower trees
@@ -281,9 +284,40 @@ def _read_leaf(buf: np.ndarray, dtype: str, shape) -> Any:
     return buf.view(np.dtype(dtype)).reshape(shape)
 
 
+def _stack(leaves, axis: int):
+    """``np.stack`` that keeps the leaves' kind: bfloat16 leaves are
+    tensors (``_read_leaf``), the others numpy arrays."""
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves, dim=axis)
+    return np.stack([np.asarray(x) for x in leaves], axis=axis)
+
+
+def migrate_legacy_attn(params) -> bool:
+    """Stack pre-fusion per-projection attention parameters into the fused
+    layout (wq/wk/wv -> wqkv (L, d, 3, d); bq/bk/bv -> bqkv (L, 3, d)), in
+    place; the port of ``outfitx_tpu/train/checkpoint.py:migrate_legacy_attn``.
+
+    Checkpoints written before the QKV fusion carry the per-projection
+    tree. Returns True if a conversion happened; any other tree (fused, or
+    without a top-level ``layers`` such as original-CP's) is left as it
+    is."""
+    attn = (
+        params.get("layers", {}).get("attn")
+        if isinstance(params, dict)
+        else None
+    )
+    if not isinstance(attn, dict) or "wq" not in attn or "wqkv" in attn:
+        return False
+    attn["wqkv"] = _stack([attn.pop(k) for k in ("wq", "wk", "wv")], axis=2)
+    attn["bqkv"] = _stack([attn.pop(k) for k in ("bq", "bk", "bv")], axis=1)
+    return True
+
+
 def read_checkpoint_tree(path: str | pathlib.Path) -> Dict[str, Any]:
     """The whole tree of a ``state.npz`` checkpoint directory (written by
-    either package), leaves as numpy arrays (bfloat16 ones as tensors)."""
+    either package), leaves as numpy arrays (bfloat16 ones as tensors). The
+    ``params`` subtree of a checkpoint from before the QKV fusion comes back
+    in the fused layout (``migrate_legacy_attn``)."""
     path = pathlib.Path(path)
     if not (path / "state.npz").is_file():
         raise FileNotFoundError(
@@ -304,7 +338,9 @@ def read_checkpoint_tree(path: str | pathlib.Path) -> Dict[str, Any]:
             shape, dtype = specs[sk]
             return _read_leaf(z[f"leaf_{sk}"], dtype, shape)
 
-        return build(info["skeleton"])
+        tree = build(info["skeleton"])
+    migrate_legacy_attn(tree.get("params", {}))
+    return tree
 
 
 def load_jax_checkpoint(path: str | pathlib.Path) -> Dict[str, torch.Tensor]:

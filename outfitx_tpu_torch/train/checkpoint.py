@@ -40,8 +40,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from outfitx_tpu_torch.models.from_jax import (
+from outfitx_tpu_torch.models.from_jax import (  # noqa: F401 (re-exported)
     jax_params_from_state_dict,
+    migrate_legacy_attn,
     read_checkpoint_tree,
     state_dict_from_jax,
 )
@@ -70,8 +71,24 @@ def optimizer_tree(model: torch.nn.Module, optimizer, full=None) -> Dict[str, An
 
 def load_optimizer_tree(model: torch.nn.Module, optimizer, tree, local=None) -> None:
     """The inverse of ``optimizer_tree``; ``local(p, moment)`` cuts a whole
-    moment to a mesh rank's block."""
+    moment to a mesh rank's block. Raises ValueError, loading nothing, when
+    the moments are not keyed by this model's parameter names: the JAX
+    package's optimizer state is optax's tree, and one saved before the QKV
+    fusion holds moments of the per-projection wq/wk/wv."""
     names = {id(p): n for n, p in model.named_parameters()}
+    want = sorted(names[id(p)] for p in optimizer.params)
+    if not (
+        isinstance(tree, dict)
+        and all(isinstance(tree.get(k), dict) and sorted(tree[k]) == want for k in ("mu", "nu"))
+    ):
+        raise ValueError(
+            "the checkpoint's optimizer state does not match this model's parameters "
+            "(a JAX package checkpoint's is optax's; one saved before the QKV fusion "
+            "holds per-projection wq/wk/wv moments), so a full resume from it is not "
+            "supported: warm-start the parameters into a fresh optimizer instead "
+            "(a CIR trainer's warm_start_from, or load_params on "
+            "CheckpointManager.restore(...)['params'])"
+        )
     local = local or (lambda p, m: m)
 
     def moments(key):
@@ -279,7 +296,8 @@ class CheckpointManager:
         'enc_heads' (the JAX tree, numpy) where the checkpoint is
         original-CP's. Reads this package's checkpoints and the JAX
         package's ``state.npz`` checkpoints (whose optimizer subtree is
-        optax's, returned as it is). Waits for queued saves first."""
+        optax's, returned as it is), those from before the QKV fusion
+        included (``migrate_legacy_attn``). Waits for queued saves first."""
         self.wait()
         path = pathlib.Path(tag_or_path)
         if not path.exists():

@@ -289,15 +289,17 @@ class Trainer(abc.ABC):
 
     def resume(self, tag_or_path: str = "final") -> None:
         """Restore parameters (and optimizer state, step and epoch when
-        saved) and continue from the next epoch."""
+        saved) and continue from the next epoch. An optimizer state that is
+        not this package's (a JAX checkpoint's, one from before the QKV
+        fusion) raises before anything is loaded."""
         payload = self.ckpt.restore(tag_or_path)
-        self.load_checkpoint_params(payload)
         if payload["opt_state"] is not None:
             local = self.par.local if self.par is not None else None
             load_optimizer_tree(
                 self.state.model, self.state.optimizer, payload["opt_state"], local
             )
             self.state.step = int(payload["meta"].get("step", 0))
+        self.load_checkpoint_params(payload)
         self.epoch = int(payload["meta"].get("epoch", -1)) + 1
         for name, value in payload["meta"].get("best", {}).items():
             if name in self.best.mode:
