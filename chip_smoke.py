@@ -27,13 +27,20 @@ Phases, each printing one JSON line:
             backward against autograd; the attention forward at MiniLM's
             (64,12,64,32) with tail-padded keys and at (4096,16,17,8), the
             set transformer over resnet_sbert embeddings on the bfloat16
-            scalar route, causal and not; layernorm at MiniLM's 131,072 x
-            384 rows with eps 1e-12; the original-CP path's shapes:
-            the backward at (350,16,17,8) (Dh=8, the scalar route) causal
-            and not, the forward at MiniLM's (5600,12,16,32) tail-padded,
-            layernorm at 89,600 x 384 (eps 1e-12) and 5,950 x 128 with its
-            closed-form backward); the stream a wrapper hands its kernel is
-            PyTorch's current one;
+            narrow-head route, causal and not; layernorm at MiniLM's
+            131,072 x 384 rows with eps 1e-12; the original-CP path's
+            shapes: the backward at (350,16,17,8) (Dh=8, the narrow route)
+            causal and not, the forward at MiniLM's (5600,12,16,32)
+            tail-padded, layernorm at 89,600 x 384 (eps 1e-12) and 5,950 x
+            128 with its closed-form backward); the narrow-head
+            route (bfloat16, Dh=8, L <= 32): first its division against
+            IEEE division for every float sum in [1, 32), then its P
+            against the plain version's bit for bit (the in-thread tree
+            against torch.softmax), then forward and backward at L=1, 2,
+            9, 16, 17, 31, 32 with a ragged last group, a fully masked row
+            and tail-padded keys, causal and not, and the backward at the
+            resnet_sbert step's (3072,16,17,8); the stream a wrapper hands
+            its kernel is PyTorch's current one;
 4. serve    the serving engine at full width (d=1536, 6 layers, 16 heads,
             random weights from seed 0) answers CP, CIR (both routes), FITB
             and similar-item requests; the kernel launch counts of that run
@@ -162,10 +169,15 @@ Phases, each printing one JSON line:
             in bfloat16 at (69632, 1536) x (1536, 4608); attention also at
             MiniLM's (2048,12,64,32) and at Dh=8, layernorm at 384; the
             original-CP path's attention (5600,12,16,32) and
-            (350,16,17,8) forward and backward, layernorm at 89,600 x 384
-            and 5,950 x 128; the meshed step's shapes a rank, attention
-            (768,8,17,96) and (384,16,17,96) forward and backward,
-            layernorm at 13,056 and 6,528 rows.
+            (350,16,17,8) forward and backward (the launch-bound rows:
+            medians of five turns), layernorm at 89,600 x 384 and 5,950 x
+            128; the meshed step's shapes a rank, attention (768,8,17,96)
+            and (384,16,17,96) forward and backward, layernorm at 13,056
+            and 6,528 rows; the backward at (3072,16,17,8), and the
+            set transformer over resnet_sbert embeddings end to end, its
+            CP forward at B=4096 and one CP train step at B=3072 x A=4,
+            each with a profile by kernel kind, whose attention kernels
+            must all be the narrow route's.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without the last line. It needs a CUDA card
@@ -253,7 +265,7 @@ FWD_TILE_SHAPES = [
 # The forward at the shapes the int8 forward's and resnet_sbert's paths
 # give it: MiniLM (T=64, Dh=32) with keys padded at each row's tail as the
 # tokenizer pads them, and the set transformer over resnet_sbert embeddings
-# (d_embed 128, 16 heads: Dh=8, bfloat16 on the scalar route), causal and
+# (d_embed 128, 16 heads: Dh=8, bfloat16 on the narrow route), causal and
 # not. (shape, causal, tail-padded keys).
 SLICE8_MHA_SHAPES = [
     ((64, 12, 64, 32), False, True),
@@ -262,12 +274,36 @@ SLICE8_MHA_SHAPES = [
 # The original-CP path's shapes: MiniLM at T=16 over the 5,600 texts of one
 # microbatch (350 outfits x 16 items), keys padded at each row's tail; the
 # set transformer over its embeddings (d_embed 128, Dh=8) forward and
-# backward (the bfloat16 scalar route of both kernels), with padded keys; and
+# backward (the bfloat16 narrow route of both kernels), with padded keys; and
 # LayerNorm at MiniLM's 89,600 rows (eps 1e-12) and the set transformer's
 # 5,950 (eps 1e-5). (shape, causal, tail-padded keys) for the forward.
 OCP_MHA_SHAPES = [((5600, 12, 16, 32), False, True)]
 OCP_BWD_SHAPES = [(350, 16, 17, 8)]
 OCP_LAYERNORM_SHAPES = [((89600, 384), 1e-12), ((5950, 128), 1e-5)]
+# The narrow-head route (bfloat16, Dh = 8, 1 <= L <= 32; csrc/narrow_mha.cuh):
+# groups of 256 // L slabs forward and 128 // L backward, a thread a row. B*H
+# leaves the last group ragged in both at every L here but the first L=17
+# shape, ragged forward only (slabs; slabs a group forward, backward: L=1:
+# 536; 256, 128; 2: 296; 128, 64; 9: 65; 28, 14; 16: 35; 16, 8; 17: 35 and
+# 40; 15, 7; 31 and 32: 15; 8, 4); row 0 of each batch has every key masked
+# (uniform P), and L=9 and 17 also run with keys padded at the tail.
+# (shape, tail-padded keys), each causal and not, forward and backward; the
+# backward also at the resnet_sbert CP step's microbatch (3072,16,17,8), 49,152
+# slabs, ragged too (the forward's (4096,16,17,8) is in SLICE8_MHA_SHAPES).
+NARROW_SHAPES = [
+    ((67, 8, 1, 8), False), ((37, 8, 2, 8), False), ((13, 5, 9, 8), False),
+    ((13, 5, 9, 8), True), ((7, 5, 16, 8), False), ((7, 5, 17, 8), False),
+    ((8, 5, 17, 8), True), ((5, 3, 31, 8), False), ((5, 3, 32, 8), False),
+]
+NARROW_BWD_FULL = (3072, 16, 17, 8)
+# The narrow forward's P against the plain version's, bit for bit (V one-hot
+# on 8 keys at a time makes the output P itself): the tree-order check.
+NARROW_P_SHAPES = [(4096, 16, 17, 8), (67, 8, 1, 8), (13, 5, 9, 8), (5, 3, 32, 8)]
+# Attention timing rows whose bound is below LAUNCH_BOUND_MS are launch-bound
+# (one reading of (350,16,17,8) gave 0.0754 ms, another 0.0321): medians of
+# LAUNCH_BOUND_TURNS turns.
+LAUNCH_BOUND_MS = 0.005
+LAUNCH_BOUND_TURNS = 5
 # The forward's timing rows at the towers' lengths, batch 2048: SigLIP
 # ViT-B/16, CLIP ViT-B/32, CLIP text (causal), MiniLM; and the set
 # transformer over resnet_sbert embeddings at B=4096.
@@ -468,10 +504,11 @@ def _kind(name: str) -> str:
     )
 
 
-def profile_call(fn, top: int = 10):
+def profile_call(fn, top: int = 10, names: bool = False):
     """Device time by kernel over one call of ``fn``, from torch.profiler:
     the call's wall time, the device's busy time, the time by kernel kind
-    and the ``top`` kernels."""
+    and the ``top`` kernels (with ``names``, also every attention kernel's
+    whole name, which tells its route)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -495,7 +532,11 @@ def profile_call(fn, top: int = 10):
         kinds[_kind(name)] = (k_ms + ms, k_n + n)
     busy = sum(ms for ms, _ in rows.values())
     ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]
+    extra = {}
+    if names:
+        extra["attention_kernels"] = sorted(n for n in rows if "masked_mha" in n)
     return {
+        **extra,
         "wall_ms": wall_ms,
         "device_busy_ms": busy,
         "by_kind": {
@@ -775,16 +816,13 @@ def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def _tower_kernel_checks():
-    """The forward attention at tower lengths, attn_block and mlp_fused, each
-    against its plain version on the card, float32 and bfloat16."""
+def _mha_fwd_checks(shapes):
+    """masked_mha_fwd against its plain version on the card at each (shape,
+    causal, tail-padded keys), float32 and bfloat16."""
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
-    from outfitx_tpu_torch.ops.attn_block import _attn_block_cuda, attn_block_reference
-    from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
 
-    mha_cases, block_cases, mlp_cases = [], [], []
-    shapes = [(shape, causal, False) for shape, causal in TOWER_MHA_SHAPES + FWD_TILE_SHAPES]
-    for si, (shape, causal, tail) in enumerate(shapes + SLICE8_MHA_SHAPES + OCP_MHA_SHAPES):
+    mha_cases = []
+    for si, (shape, causal, tail) in enumerate(shapes):
         inputs = tail_padded_attention_inputs if tail else attention_inputs
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pad = inputs(shape, dtype, seed=20 + si)
@@ -800,6 +838,26 @@ def _tower_kernel_checks():
             case = {**tag, "max_abs_err": err, "ok": ok}
             mha_cases.append(case)
             check(ok, f"masked_mha_fwd disagrees with its plain version: {case}")
+    return mha_cases
+
+
+NARROW_FWD_CASES = [
+    (shape, causal, tail) for shape, tail in NARROW_SHAPES for causal in (False, True)
+]
+
+
+def _tower_kernel_checks():
+    """The forward attention at tower lengths, the tilings' and the narrow
+    route's shapes, attn_block and mlp_fused, each against its plain version
+    on the card, float32 and bfloat16."""
+    from outfitx_tpu_torch.ops.attn_block import _attn_block_cuda, attn_block_reference
+    from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
+
+    block_cases, mlp_cases = [], []
+    shapes = [(shape, causal, False) for shape, causal in TOWER_MHA_SHAPES + FWD_TILE_SHAPES]
+    mha_cases = _mha_fwd_checks(
+        shapes + SLICE8_MHA_SHAPES + OCP_MHA_SHAPES + NARROW_FWD_CASES
+    )
     for si, shape in enumerate(ATTN_BLOCK_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             y, wqkv, bqkv, wo, pad, h, causal = attn_block_inputs(shape, dtype, 30 + si)
@@ -936,16 +994,23 @@ def _stream_check():
 
 
 def _bwd_kernel_checks():
-    """masked_mha_bwd against its plain version on the card at BWD_SHAPES
-    and BWD_TILE_SHAPES, float32 and bfloat16, causal and not: dq, dk and
-    dv finite and within the dtype's limit, masked keys' dk and dv exactly
-    0."""
+    """masked_mha_bwd against its plain version on the card at BWD_SHAPES,
+    BWD_TILE_SHAPES, OCP_BWD_SHAPES and the narrow route's shapes, float32
+    and bfloat16, causal and not: dq,
+    dk and dv finite and within the dtype's limit, masked keys' dk and dv
+    exactly 0."""
     from outfitx_tpu_torch.ops.attention import _masked_mha_bwd_cuda, mha_bwd_reference
 
+    shapes = BWD_SHAPES + BWD_TILE_SHAPES + OCP_BWD_SHAPES
     cases = []
-    for si, shape, dtype, causal in _cases(BWD_SHAPES + BWD_TILE_SHAPES + OCP_BWD_SHAPES):
-        q, k, v, pad = attention_inputs(shape, dtype, seed=si)
+    for si, (shape, tail), dtype, causal in _cases(
+        [(shape, False) for shape in shapes] + NARROW_SHAPES + [(NARROW_BWD_FULL, False)]
+    ):
+        inputs = tail_padded_attention_inputs if tail else attention_inputs
+        q, k, v, pad = inputs(shape, dtype, seed=si)
         tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
+        if tail:
+            tag["tail_padded_keys"] = True
         gen = torch.Generator(device="cuda").manual_seed(100 + si)
         g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         got = _masked_mha_bwd_cuda(q, k, v, pad, g, causal)
@@ -970,9 +1035,63 @@ def _bwd_kernel_checks():
     return cases
 
 
+def _narrow_p_check():
+    """The narrow forward's P against the plain version's, bit for bit, at
+    NARROW_P_SHAPES, causal and not: with V one-hot on keys j0 .. j0 + 7
+    (every other key's row 0) the output's column c is P[:, j0 + c] rounded
+    to bfloat16, exactly. This holds the in-thread 64-slot tree, expf and
+    the division against torch.softmax on the card, apart from the walk's
+    other steps; a check of the outputs that fails where this one passes
+    points at the walk."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, _probs
+
+    cases = []
+    for si, shape in enumerate(NARROW_P_SHAPES):
+        b, h, l, dh = shape
+        for causal in (False, True):
+            q, k, _, pad = attention_inputs(shape, torch.bfloat16, seed=110 + si)
+            want = _probs(q, k, pad, causal).to(torch.bfloat16)
+            got = torch.empty_like(want)
+            for j0 in range(0, l, dh):
+                n = min(dh, l - j0)
+                v = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+                v[:, :, j0:j0 + n, :n] = torch.eye(n, dtype=torch.bfloat16, device="cuda")
+                got[..., j0:j0 + n] = _masked_mha_cuda(q, k, v, pad, causal)[..., :n]
+            torch.cuda.synchronize()
+            flips = int((got != want).sum())
+            case = {"shape": list(shape), "causal": causal, "p_entries": want.numel(),
+                    "p_entries_differing": flips}
+            cases.append(case)
+            check(flips == 0, f"narrow forward's P differs from the plain version's: {case}")
+    return cases
+
+
+def _narrow_div_check():
+    """The narrow route's division (csrc/narrow_mha.cuh div_fast: the fast
+    path of the compiler's IEEE division with the reciprocal shared by a
+    row, and no range check) against that division on the card: every float
+    sum in [1, 32), each against 17 numerators in [2^-64, 1]."""
+    import ctypes
+
+    from outfitx_tpu_torch.ops import _build
+
+    fn = _build.load("masked_mha_fwd").masked_mha_fwd_div_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    bad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    err = fn(bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    out = {"sums": 0x42000000 - 0x3F800000, "numerators_each": 17,
+           "mismatches": int(bad.item())}
+    check(err == 0 and out["mismatches"] == 0,
+          f"the narrow route's division differs from IEEE division: {out}")
+    return out
+
+
 def phase_kernels():
     from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
 
+    narrow_div = _narrow_div_check()
+    narrow_p = _narrow_p_check()  # the tree order next
     fwd_cases = []
     for si, shape, dtype, causal in _cases(KERNEL_SHAPES):
         q, k, v, pad = attention_inputs(shape, dtype, seed=si)
@@ -995,7 +1114,8 @@ def phase_kernels():
         "masked_mha_bwd": bwd_cases, "attn_block": block_cases,
         "mlp_fused": mlp_cases, "layernorm": ln_cases,
         "layernorm_special_rows": ln_special, "layernorm_backward": ln_bwd,
-        "launch_stream": _stream_check(),
+        "launch_stream": _stream_check(), "narrow_forward_p": narrow_p,
+        "narrow_division": narrow_div,
     })
 
     def main_err(cases, shape):
@@ -2275,7 +2395,7 @@ def _resnet_sbert(cfg, root):
     MiniLM 6 x 384 at T=64): a sweep of PRECOMPUTE_ITEMS items with exact
     launch counts (6 masked_mha_fwd and 13 layernorm a MiniLM pass), 32
     items against the CPU in float32, one batch timed; then the set
-    transformer at d_embed 128 (16 heads of Dh=8, the bfloat16 scalar
+    transformer at d_embed 128 (16 heads of Dh=8, the bfloat16 narrow
     attention route) scoring outfits drawn from those embeddings, card
     bfloat16 against CPU float32."""
     from outfitx_tpu_torch.core.config import ItemEncoderConfig, OutfitXConfig
@@ -3056,16 +3176,30 @@ def phase_retrieval():
 
 
 
+def _launch_bound(shape, backward: bool = False) -> bool:
+    """A shape whose bound is a few microseconds: its kernel time is mostly
+    launch latency, and one reading of it spreads."""
+    return attention_bound(shape, torch.bfloat16, backward)[0] < LAUNCH_BOUND_MS
+
+
+def _median_ms(fn, iters: int, turns: int):
+    """(median, turns) of ``turns`` readings of cuda_ms."""
+    got = [cuda_ms(fn, iters) for _ in range(turns)]
+    return float(np.median(got)), got
+
+
 def _bwd_timing(shape):
     """masked_mha_bwd at one bf16 shape: kernel, plain version, and the
     backward of ``scaled_dot_product_attention`` with the bool mask, timed
-    as (forward + backward) - forward on the same inputs."""
+    as (forward + backward) - forward on the same inputs; at a launch-bound
+    shape the kernel's medians of LAUNCH_BOUND_TURNS turns."""
     from outfitx_tpu_torch.ops.attention import _masked_mha_bwd_cuda, mha_bwd_reference
 
     q, k, v, pad = attention_inputs(shape, torch.bfloat16, seed=7)
     g = torch.randn(shape, device="cuda").to(torch.bfloat16)
     keep = ~pad[:, None, None, :]
-    iters = 200 if shape[0] <= 64 else 20
+    iters = 200 if shape[0] <= 64 or _launch_bound(shape, True) else 20
+    turns = LAUNCH_BOUND_TURNS if _launch_bound(shape, True) else 1
     bound, bound_by = attention_bound(shape, torch.bfloat16, backward=True)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
@@ -3075,9 +3209,13 @@ def _bwd_timing(shape):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qr, kr, vr), g)
 
+    ms, ms_turns = _median_ms(
+        lambda: _masked_mha_bwd_cuda(q, k, v, pad, g, False), iters, turns
+    )
     return {
         "shape": list(shape),
-        "ms": cuda_ms(lambda: _masked_mha_bwd_cuda(q, k, v, pad, g, False), iters),
+        "ms": ms,
+        **({"ms_turns": ms_turns} if turns > 1 else {}),
         "plain_ms": cuda_ms(lambda: mha_bwd_reference(q, k, v, pad, g), iters),
         "library_ms": cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(sdpa, iters),
         "bound_ms": bound,
@@ -3085,39 +3223,53 @@ def _bwd_timing(shape):
     }
 
 
+def _fwd_timing(shape, causal: bool = False, padded: bool = False):
+    """masked_mha_fwd in bfloat16 at one shape, with the set transformer's
+    padded keys (``padded``) or unpadded as the vision towers call it:
+    kernel, plain version, SDPA on the same function as a bool mask
+    (causal: the lower triangle) and the bound; at a launch-bound shape the
+    kernel's medians of LAUNCH_BOUND_TURNS turns of 200 calls, else one
+    reading of 20."""
+    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+
+    dt = torch.bfloat16
+    if padded:
+        q, k, v, pad = attention_inputs(shape, dt, seed=7)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
+        pad = torch.zeros((shape[0], shape[2]), dtype=torch.bool, device="cuda")
+    keep = ~pad[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(
+            (shape[2], shape[2]), dtype=torch.bool, device="cuda"
+        ).tril()
+    bound, bound_by = attention_bound(shape, dt)
+    iters, turns = (200, LAUNCH_BOUND_TURNS) if _launch_bound(shape) else (20, 1)
+    ms, ms_turns = _median_ms(lambda: _masked_mha_cuda(q, k, v, pad, causal), iters, turns)
+    return {
+        "shape": list(shape), "causal": causal, "ms": ms,
+        **({"ms_turns": ms_turns} if turns > 1 else {}),
+        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad, causal), 3, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 5
+        ),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
 def _tower_timing():
     """The three tower kernels in bfloat16 at the SigLIP towers' shapes at
     batch 2048: kernel, plain version, the PyTorch library calls for the same
     function, and the bound."""
-    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
     from outfitx_tpu_torch.ops.attn_block import _attn_block_cuda, attn_block_reference
     from outfitx_tpu_torch.ops.mlp import _mlp_fused_cuda, mlp_fused_reference
 
     dt = torch.bfloat16
-    out = {}
-
-    # The towers' attention, unpadded as the vision towers call it; SDPA
-    # gets the same function as a bool mask (causal: the lower triangle).
-    for name, shape, causal in TOWER_MHA_TIMING:
-        gen = torch.Generator(device="cuda").manual_seed(11)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
-        pad = torch.zeros((shape[0], shape[2]), dtype=torch.bool, device="cuda")
-        keep = ~pad[:, None, None, :]
-        if causal:
-            keep = keep & torch.ones(
-                (shape[2], shape[2]), dtype=torch.bool, device="cuda"
-            ).tril()
-        bound, bound_by = attention_bound(shape, dt)
-        out[f"masked_mha_fwd_{name}"] = {
-            "shape": list(shape), "causal": causal,
-            "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, causal), 5),
-            "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad, causal), 3, warmup=1),
-            "library_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 5
-            ),
-            "bound_ms": bound, "bound_by": bound_by,
-        }
-        del q, k, v
+    out = {
+        f"masked_mha_fwd_{name}": _fwd_timing(shape, causal)
+        for name, shape, causal in TOWER_MHA_TIMING
+    }
 
     shape = ATTN_BLOCK_SHAPES[0]  # the text tower's block
     y, wqkv, bqkv, wo, pad, h, causal = attn_block_inputs(shape, dt, seed=12)
@@ -3310,30 +3462,102 @@ def _profile_split(profile):
     }
 
 
-def phase_timing(engine, q8_engine):
-    from outfitx_tpu_torch.ops.attention import _masked_mha_cuda, mha_reference
+def _narrow_routes(profile, kinds):
+    """The attention kernels of ``kinds`` that a profile shows, and whether
+    each is the narrow route's."""
+    names = [n for n in profile["attention_kernels"] if any(k in n for k in kinds)]
+    return names, bool(names) and all("narrow" in n for n in names)
 
-    per_shape = {}
-    for batch, shape in [(b, (b, 16, 17, 96)) for b in (8, TRAIN_B, 4096)] + list(
-        PARALLEL_MHA_SHAPES.items()
-    ):
-        q, k, v, pad = attention_inputs(shape, torch.bfloat16, seed=7)
-        keep = ~pad[:, None, None, :]
-        iters = 200 if shape[0] <= 64 else 20
-        bound, bound_by = attention_bound(shape, torch.bfloat16)
-        per_shape[batch] = {
-            "shape": list(shape),
-            "ms": cuda_ms(lambda: _masked_mha_cuda(q, k, v, pad, False), iters),
-            "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad), iters),
-            "library_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
-                iters,
-            ),
-            "bound_ms": bound,
-            "bound_by": bound_by,
-        }
+
+def _resnet_sbert_e2e():
+    """The set transformer over resnet_sbert embeddings (d_embed 128, 16
+    heads of Dh=8) end to end, random weights from seed 0: the CP forward at
+    B=4096 and one CP train step at B=TRAIN_B x A=TRAIN_A (dropout 0.3) over
+    a synthetic (CATALOG_ITEMS + 1, 128) table (unit rows, the zero PAD row
+    last), each timed by the host clock around synchronised calls and
+    profiled by kernel kind, with the attention kernels each launches by
+    name and whether all of them are the narrow route's."""
+    from outfitx_tpu_torch.core.config import (
+        ItemEncoderConfig,
+        OptimizerConfig,
+        OutfitXConfig,
+    )
+    from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
+    from outfitx_tpu_torch.train.optim import AdamW
+    from outfitx_tpu_torch.train.state import TrainState
+    from outfitx_tpu_torch.train.steps import cp_train_step
+
+    cfg = OutfitXConfig(item_encoder=ItemEncoderConfig.for_type("resnet_sbert"))
+    check(cfg.d_embed // cfg.transformer.n_heads == 8, "resnet_sbert heads are not Dh=8")
+    b, l, d = 4096, cfg.max_outfit_len, cfg.d_embed
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    emb = torch.randn((b, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = torch.randint(2, l + 1, (b,), generator=gen, device="cuda")
+    mask = torch.arange(l, device="cuda")[None, :] >= lengths[:, None]
+    model = OutfitXModel(cfg, device="cuda", seed=0)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model.cp_forward(emb, mask), iters=10, warmup=3)
+        fwd_profile = profile_call(lambda: model.cp_forward(emb, mask), names=True)
+    del model, emb
+
+    rng = np.random.default_rng(0)
+    n = CATALOG_ITEMS
+    table = rng.standard_normal((n + 1, d)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    table[n] = 0.0
+    lengths = rng.integers(3, l + 1, (TRAIN_A, TRAIN_B))
+    pads = np.arange(l)[None, None, :] >= lengths[..., None]
+    rows = np.where(pads, n, rng.integers(0, n, (TRAIN_A, TRAIN_B, l)))
+    batch = {
+        "item_idx": torch.as_tensor(rows.astype(np.int32), device="cuda"),
+        "mask": torch.as_tensor(pads, device="cuda"),
+        "label": torch.as_tensor(
+            rng.integers(0, 2, (TRAIN_A, TRAIN_B)).astype(np.float32), device="cuda"
+        ),
+    }
+    catalog = torch.as_tensor(table, device="cuda")
+    model = OutfitXModel(cfg, device="cuda", seed=0, trainable=True)
+    state = TrainState.create(model, AdamW(model.parameters(), OptimizerConfig(), 1), seed=0)
+
+    def step():
+        return cp_train_step(state, catalog, batch)
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = float(step()["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(math.isfinite(loss), f"non-finite resnet_sbert CP train loss {loss}")
+    step_profile = profile_call(step, top=8, names=True)
+    del model, state, catalog
+    torch.cuda.empty_cache()
+    fwd_names, fwd_narrow = _narrow_routes(fwd_profile, ("masked_mha_fwd",))
+    step_names, step_narrow = _narrow_routes(
+        step_profile, ("masked_mha_fwd", "masked_mha_bwd")
+    )
+    return {
+        "d_embed": d, "head_dim": d // cfg.transformer.n_heads,
+        "cp_forward_b4096_ms": fwd_ms, "cp_forward_outfits_per_s": b / (fwd_ms / 1e3),
+        "cp_forward_b4096_profile": fwd_profile,
+        "train_step": {"batch": TRAIN_B, "accumulation": TRAIN_A, "catalog_rows": n + 1},
+        "train_step_ms": float(np.mean(times)), "train_step_ms_each": times,
+        "train_step_loss": loss, "train_step_profile": step_profile,
+        "attention_kernels": {"cp_forward": fwd_names, "train_step": step_names},
+        "attention_kernels_narrow": {"cp_forward": fwd_narrow, "train_step": step_narrow},
+    }
+
+
+def phase_timing(engine, q8_engine):
+    per_shape = {
+        batch: _fwd_timing(shape, padded=True)
+        for batch, shape in [(b, (b, 16, 17, 96)) for b in (8, TRAIN_B, 4096)]
+        + list(PARALLEL_MHA_SHAPES.items())
+    }
     bwd = {batch: _bwd_timing((batch, 16, 17, 96)) for batch in (8, TRAIN_B)}
     bwd["original_cp"] = _bwd_timing(OCP_BWD_SHAPES[0])
+    bwd["resnet_sbert"] = _bwd_timing(NARROW_BWD_FULL)
     for key, shape in PARALLEL_MHA_SHAPES.items():
         bwd[key] = _bwd_timing(shape)
 
@@ -3354,6 +3578,10 @@ def phase_timing(engine, q8_engine):
     p50, p99, n_lat = _cp_score_latency(engine)
     q8_p50, q8_p99, _ = _cp_score_latency(q8_engine)
     int_mm = _int_mm_timing()
+    resnet_sbert = _resnet_sbert_e2e()
+    for path, narrow in resnet_sbert["attention_kernels_narrow"].items():
+        check(narrow, f"the resnet_sbert {path}'s attention kernels are not all the "
+              f"narrow route's: {resnet_sbert['attention_kernels'][path]}")
     towers = _tower_timing()
     layernorm = _layernorm_timing()
     host = _layernorm_host_time()
@@ -3383,6 +3611,7 @@ def phase_timing(engine, q8_engine):
             "int_mm_vs_bf16_matmul": int_mm,
         },
         "layernorm_host_us_per_call": host,
+        "resnet_sbert_set_transformer": resnet_sbert,
     })
     return per_shape, bwd, towers, layernorm, host
 
@@ -4009,6 +4238,7 @@ def main() -> int:
         }),
         ("masked_mha_bwd", "outfitx_tpu/ops/attention.py:188", bwd[TRAIN_B], {
             "at_b8": bwd[8], "at_original_cp_set_transformer": bwd["original_cp"],
+            "at_resnet_sbert_set_transformer_b3072": bwd["resnet_sbert"],
             "at_parallel_tp_rank": bwd["tp"], "at_parallel_dp_rank": bwd["dp"],
         }),
         ("attn_block", "outfitx_tpu/ops/attn_block.py:41", towers["attn_block"], {}),

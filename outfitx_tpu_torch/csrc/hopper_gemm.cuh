@@ -174,6 +174,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, int col,
       : "memory");
 }
 // A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global into shared memory, by the bulk-copy engine; completes on
+// `bar`, as tma_load does.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
+      "[%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from shared into global memory, by the bulk-copy engine; completes in the
 // thread's bulk group like tma_store.
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {

@@ -63,8 +63,28 @@
 // the products multiply the zeros of the Pb and dSb tiles by other slabs'
 // rows (0 * Inf is NaN), as in the forward.
 //
+// bfloat16 at Dh = 8 and L <= 32 (the set transformer over resnet_sbert
+// embeddings, d_embed 128 over 16 heads, in CP/CIR training and in the
+// original-CP step) takes the narrow-head kernel,
+// masked_mha_bwd_narrow_kernel<L> (narrow_mha.cuh). What bounds it is
+// bytes: at (3072, 16, 17, 8) q, k, v, g, dq, dk and dv are 7 x 13.37 MB =
+// 93.6 MB, 27.9 us at 3.35 TB/s, against about 1.1 GFLOP, of which S, dP
+// and the softmax (float32, in order) run on the CUDA cores. A 64-row tile
+// of the tile kernel holds 3 such slabs and a 32-column box at Dh = 8 would
+// be three quarters zeros, so the route streams groups of 128 / L slabs (7
+// at L = 17) by bulk copies into a persistent block of 128 threads, a
+// thread a query row repeating the plain version's float32 arithmetic up to
+// the roundings of P and dS (S and dP in order over d, expf, the 64-slot
+// tree, true division, the rounded products' tree); S and dP stay on the
+// CUDA cores in order over d (a tensor-core S or dP failed the bf16 check,
+// above). dQ, dK and dV, which round once, run on mma.sync after one
+// barrier, a warp a slab. The kernel is instantiated for each L (buckets of
+// 8 to 32 keys with L at run time were 39% slower at L = 17 on an H100); the
+// walk and its launch are narrow_mha.cuh's, shared with the forward.
+//
 // float32 (the correctness route; no main path on the card runs it) and
-// bfloat16 at a Dh that is not a multiple of 16 keep the scalar design: one
+// bfloat16 at a Dh % 16 != 0 outside the narrow route (Dh = 24, 40, ...,
+// and Dh = 8 at 33 <= L <= 64) keep the scalar design: one
 // block of 128 threads per (b, h) widens Q, K, V and G into float shared
 // memory, rows padded to Dh + 1 floats so that the dot-product loops (which
 // read one element of several rows at once) hit distinct banks; S and dP
@@ -78,6 +98,7 @@
 #include <stdint.h>
 
 #include "hopper_gemm.cuh"
+#include "narrow_mha.cuh"
 
 namespace {
 
@@ -90,7 +111,7 @@ inline float softmax_scale(int Dh) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
 }
 
-// ---- float32, or bfloat16 at Dh % 16 != 0 -----------------------------------
+// ---- float32, or bfloat16 at Dh % 16 != 0 off the narrow route -------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -726,6 +747,105 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
   }
 }
 
+// ---- bfloat16 at Dh = 8, L <= 32: narrow heads ---------------------------------
+//
+// Groups of 128 / L slabs walked by a block (narrow_mha.cuh). Q, K, V and G
+// of a group arrive by four bulk copies into a stage. Then a thread a query
+// row, with the slab's K and V rows read as broadcasts: S and dP summed over
+// d in order, P over the 64-slot tree with true division, rowsum(dP o P)
+// over the same tree with the products rounded first, dS = P o (dP -
+// rowsum); Pb = bfloat16(P) and dSb = bfloat16(dS * scale) go into the
+// group's two blocks. After a barrier each warp takes slabs' dQ = dSb K,
+// dV = Pb^T G and dK = dSb^T Q by mma.sync (K, G and Q rows straight from
+// the stage), float32 sums, and stores the rows' bfloat16 pairs. Blocks of
+// 128 threads, four an SM, were the fastest of the sizes tried (128 and 256
+// threads, one to eight blocks an SM) on an H100 at (3072, 16, 17, 8).
+constexpr int kNarrowThreads = 128;
+constexpr int kNarrowMinBlocks = 4;
+
+template <int L>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowMinBlocks)
+    masked_mha_bwd_narrow_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const __nv_bfloat16* __restrict__ g,
+                                 const uint8_t* __restrict__ pad,
+                                 __nv_bfloat16* __restrict__ dq,
+                                 __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv, int BH, int H,
+                                 float scale, int causal) {
+  using P = nm::Plan<L, kNarrowThreads, 4, 2>;
+  extern __shared__ __align__(16) uint8_t narrow_smem[];
+  uint8_t* pb = narrow_smem + P::kBlocks;  // (R, kBlockRow): Pb
+  uint8_t* dsb = pb + P::kRows * P::kBlockRow;  // (R, kBlockRow): dSb
+  const __nv_bfloat16* const in[4] = {q, k, v, g};
+  nm::walk<L, kNarrowThreads, 4, 2>(
+      narrow_smem, in, pad, BH, H, causal,
+      [&](const uint8_t* span, int sl, int i, uint32_t masked) {  // query row i
+        const int r = sl * L + i;
+        float qr[nm::kDh], gr[nm::kDh], s[L], dp[L];
+        nm::widen8(span + 16 * r, qr);
+        nm::widen8(span + 3 * P::kIn + 16 * r, gr);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          float kr[nm::kDh], vr[nm::kDh];
+          nm::widen8(span + P::kIn + 16 * (sl * L + j), kr);
+          nm::widen8(span + 2 * P::kIn + 16 * (sl * L + j), vr);
+          float a = 0.f, b = 0.f;
+#pragma unroll
+          for (int d = 0; d < nm::kDh; ++d) {
+            a = fmaf(qr[d], kr[d], a);
+            b = fmaf(gr[d], vr[d], b);
+          }
+          s[j] = nm::masked_score(masked, j, __fmul_rn(a, scale));
+          dp[j] = b;
+        }
+        float m = s[0];
+#pragma unroll
+        for (int j = 1; j < L; ++j) m = fmaxf(m, s[j]);
+#pragma unroll
+        for (int j = 0; j < L; ++j) s[j] = expf(__fsub_rn(s[j], m));
+        nm::div_row<L>(s, nm::tree_sum<L, false>(s));  // P
+        float x[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) x[j] = __fmul_rn(dp[j], s[j]);
+        const float rs = nm::tree_sum<L, true>(x);
+#pragma unroll
+        for (int j = 0; j < L; ++j)  // dS * scale
+          dp[j] = __fmul_rn(__fmul_rn(s[j], __fsub_rn(dp[j], rs)), scale);
+        nm::store_block_row<L>(pb + r * P::kBlockRow, s);
+        nm::store_block_row<L>(dsb + r * P::kBlockRow, dp);
+      },
+      [&](const uint8_t* span, int w, int first) {
+        const size_t row0 = static_cast<size_t>(first + w) * L;
+        const uint8_t* zero = narrow_smem + P::kZero;
+        nm::slab_mma<L, P::kBlockRow, false>(
+            dsb, span + P::kIn, w * L, zero,
+            [&](int row, int n, float v0, float v1) { nm::store_pair(dq, row0 + row, n, v0, v1); });
+        nm::slab_mma<L, P::kBlockRow, true>(
+            pb, span + 3 * P::kIn, w * L, zero,
+            [&](int row, int n, float v0, float v1) { nm::store_pair(dv, row0 + row, n, v0, v1); });
+        nm::slab_mma<L, P::kBlockRow, true>(
+            dsb, span, w * L, zero,
+            [&](int row, int n, float v0, float v1) { nm::store_pair(dk, row0 + row, n, v0, v1); });
+      });
+}
+
+cudaError_t dispatch_narrow(const void* q, const void* k, const void* v, const void* g,
+                            const void* pad, void* dq, void* dk, void* dv, int BH, int H,
+                            int L, int causal, cudaStream_t stream) {
+  return nm::by_length(L, [&](auto len) {
+    constexpr int kL = decltype(len)::value;
+    return nm::launch<kL, kNarrowThreads, nm::Plan<kL, kNarrowThreads, 4, 2>::kBytes,
+                      masked_mha_bwd_narrow_kernel<kL>>(
+        BH, stream, static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(g), static_cast<const uint8_t*>(pad),
+        static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), BH, H, softmax_scale(nm::kDh), causal);
+  });
+}
+
 }  // namespace
 
 // Dynamic shared memory of the bfloat16 tile kernel at head width dh and
@@ -744,8 +864,9 @@ extern "C" int masked_mha_bwd_smem_bytes(int dh, int slots) {
 }
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. bfloat16 at
-// Dh a multiple of 16 takes the tile kernel, the rest the scalar one.
-// Returns the cudaError_t of the launch (0 = success).
+// Dh a multiple of 16 takes the tile kernel, at Dh = 8 and L <= 32 the
+// narrow kernel, the rest the scalar one. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int masked_mha_bwd(const void* q, const void* k, const void* v,
                               const void* g, const void* pad, void* dq,
                               void* dk, void* dv, int B, int H, int L, int Dh,
@@ -757,6 +878,9 @@ extern "C" int masked_mha_bwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && Dh % 16 == 0)
     return static_cast<int>(
         dispatch_tiles(q, k, v, g, pad, dq, dk, dv, B, H, L, Dh, causal, s));
+  if (dtype == 1 && Dh == nm::kDh && L <= nm::kMaxL)
+    return static_cast<int>(
+        dispatch_narrow(q, k, v, g, pad, dq, dk, dv, B * H, H, L, causal, s));
   if (dtype == 0)
     return launch_scalar<float>(q, k, v, g, pad, dq, dk, dv, B, H, L, Dh, causal, s);
   return launch_scalar<__nv_bfloat16>(q, k, v, g, pad, dq, dk, dv, B, H, L, Dh,

@@ -50,8 +50,31 @@
 // slab, and 0 * Inf is NaN, so an Inf in one (b, h) slab's V would turn its
 // neighbours' rows to NaN, where the plain version keeps slabs apart.
 //
+// bfloat16 at Dh = 8 and L <= 32 (the set transformer over resnet_sbert
+// embeddings, d_embed 128 over 16 heads) takes the narrow-head kernel,
+// masked_mha_fwd_narrow_kernel<L> (narrow_mha.cuh). A 64-row tile fits only
+// floor(64 / 17) = 3 slabs of 16-byte rows, and a 64-column box at Dh = 8
+// would be seven eighths zeros. What bounds it is bytes: at (4096, 16, 17,
+// 8) q, k, v and out are 71.3 MB, 21.3 us at 3.35 TB/s, against 0.61 GFLOP
+// whose float32 part (S, the softmax) runs on the CUDA cores, where expf
+// and the divisions take several instructions each. So the route streams
+// and keeps each row's work lean: a persistent block of 256 threads walks
+// groups of 256 / L slabs (15 at L = 17: 4,080 contiguous bytes a tensor),
+// whose Q, K and V arrive by one bulk copy each into one of two stages
+// while the group before computes; a thread a query row repeats the plain
+// version's float32 arithmetic up to P's rounding (S in order over d, expf,
+// the 64-slot tree, true division), and P V, which rounds once, runs on
+// mma.sync. The kernel is instantiated for each L, so every loop over keys
+// is unrolled to the slab's own length (buckets of 8, 16, 24 and 32 keys
+// with L at run time were 41% slower at L = 17 on an H100, the row's loops
+// running to the bucket's end); slabs stay apart
+// (a slab's padding to the products' 16 rows reads a zero row). The walk,
+// its launch and the choice of instantiation are narrow_mha.cuh's, shared
+// with the backward.
+//
 // float32 (the correctness route; no main path on the card runs it) and
-// bfloat16 at a Dh that is not a multiple of 16 keep the scalar designs:
+// bfloat16 at a Dh % 16 != 0 outside the narrow route (Dh = 24, 40, ...,
+// and Dh = 8 at 33 <= L <= 64) keep the scalar designs:
 // L <= 64 one block of 128 threads per (b, h) with Q, K, V widened to
 // float32 in shared memory and both products as scalar FMAs; float32 above
 // L = 64 tiles the queries, 32 rows at a time, with every key and value of
@@ -65,6 +88,7 @@
 
 #include "block_gemm.cuh"
 #include "hopper_gemm.cuh"
+#include "narrow_mha.cuh"
 
 namespace {
 
@@ -95,7 +119,7 @@ inline float softmax_scale(int Dh) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
 }
 
-// ---- float32, or bfloat16 at Dh % 16 != 0; L <= 64 ------------------------
+// ---- float32, or bfloat16 at Dh % 16 != 0 off the narrow route; L <= 64 ---
 
 // Widen one (L, Dh) slab of T into float shared memory, 16 bytes per load,
 // with a row stride of `stride` floats. A 16-byte chunk never crosses a row,
@@ -828,7 +852,109 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
               : launch_long_tile<1, 256>(maps, pad, out, BH, H, L, Dh, causal, stream);
 }
 
+// ---- bfloat16 at Dh = 8, L <= 32: narrow heads ---------------------------------
+//
+// Groups of 256 / L slabs walked by a block (narrow_mha.cuh). Q, K and V of
+// a group arrive by three bulk copies into a stage; then, a thread a query
+// row with the slab's K rows read as broadcasts: S summed over d in order,
+// scaled, the masks set; the max, expf and the row's sum over the 64-slot
+// tree, true division; P rounded to bfloat16 into the group's P block.
+// After a barrier each warp takes slabs' O = P V by mma.sync (V's rows
+// straight from the stage), float32 sums, and stores the rows' bfloat16
+// pairs. Blocks of 256 threads, four an SM, were the fastest of the sizes
+// tried (64, 128 and 256 threads, two to sixteen blocks an SM) on an H100 at
+// (4096, 16, 17, 8).
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowMinBlocks = 4;
+
+template <int L>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowMinBlocks)
+    masked_mha_fwd_narrow_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const uint8_t* __restrict__ pad,
+                                 __nv_bfloat16* __restrict__ out, int BH, int H,
+                                 float scale, int causal) {
+  using P = nm::Plan<L, kNarrowThreads, 3, 1>;
+  extern __shared__ __align__(16) uint8_t narrow_smem[];
+  uint8_t* pb = narrow_smem + P::kBlocks;  // (R, kBlockRow): P rounded
+  const __nv_bfloat16* const in[3] = {q, k, v};
+  nm::walk<L, kNarrowThreads, 3, 1>(
+      narrow_smem, in, pad, BH, H, causal,
+      [&](const uint8_t* span, int sl, int i, uint32_t masked) {
+        const int r = sl * L + i;
+        float qr[nm::kDh], s[L];
+        nm::widen8(span + 16 * r, qr);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          float kr[nm::kDh];
+          nm::widen8(span + P::kIn + 16 * (sl * L + j), kr);
+          float acc = 0.f;
+#pragma unroll
+          for (int d = 0; d < nm::kDh; ++d) acc = fmaf(qr[d], kr[d], acc);
+          s[j] = nm::masked_score(masked, j, __fmul_rn(acc, scale));
+        }
+        float m = s[0];
+#pragma unroll
+        for (int j = 1; j < L; ++j) m = fmaxf(m, s[j]);
+#pragma unroll
+        for (int j = 0; j < L; ++j) s[j] = expf(__fsub_rn(s[j], m));
+        nm::div_row<L>(s, nm::tree_sum<L, false>(s));
+        nm::store_block_row<L>(pb + r * P::kBlockRow, s);
+      },
+      [&](const uint8_t* span, int w, int first) {
+        __nv_bfloat16* dst = out + static_cast<size_t>(first + w) * L * nm::kDh;
+        nm::slab_mma<L, P::kBlockRow, false>(
+            pb, span + 2 * P::kIn, w * L, narrow_smem + P::kZero,
+            [&](int row, int n, float v0, float v1) { nm::store_pair(dst, row, n, v0, v1); });
+      });
+}
+
+cudaError_t dispatch_narrow(const void* q, const void* k, const void* v, const void* pad,
+                            void* out, int BH, int H, int L, int causal, cudaStream_t stream) {
+  return nm::by_length(L, [&](auto len) {
+    constexpr int kL = decltype(len)::value;
+    return nm::launch<kL, kNarrowThreads, nm::Plan<kL, kNarrowThreads, 3, 1>::kBytes,
+                      masked_mha_fwd_narrow_kernel<kL>>(
+        BH, stream, static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+        static_cast<const uint8_t*>(pad), static_cast<__nv_bfloat16*>(out), BH, H,
+        softmax_scale(nm::kDh), causal);
+  });
+}
+
+// The narrow route's division (nm::div_row) against the compiler's IEEE
+// division: every float b in [1, 32), each against 16 numerators a drawn
+// from [2^-64, 1) (exponent and mantissa from a hash of b and the draw)
+// and a = 1; mismatches counted.
+__global__ void narrow_div_check_kernel(unsigned int* mismatches) {
+  const uint32_t first = 0x3F800000u, n = 0x42000000u - first;  // [1, 32)
+  unsigned int bad = 0;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const float b = __uint_as_float(first + i);
+    const float r = nm::recip(b);
+    uint32_t h = i * 2654435761u + 0x9E3779B9u;
+    for (int t = 0; t <= 16; ++t) {
+      h ^= h >> 15, h *= 0x2C1B3C6Du, h ^= h >> 12, h *= 0x297A2D39u, h ^= h >> 15;
+      const float a = t == 16 ? 1.f
+                              : __uint_as_float(((127u - 1u - (h >> 26)) << 23) |
+                                                (h & 0x7FFFFFu));
+      if (nm::div_fast(a, b, r) != __fdiv_rn(a, b)) ++bad;
+    }
+  }
+  if (bad) atomicAdd(mismatches, bad);
+}
+
 }  // namespace
+
+// Runs narrow_div_check_kernel on the stream, adding its mismatches to the
+// int32 on the card at `mismatches`; returns the launch's cudaError_t.
+extern "C" int masked_mha_fwd_div_check(void* mismatches, void* stream) {
+  narrow_div_check_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned int*>(mismatches));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Dynamic shared memory of the bfloat16 tile kernels at head width dh and
 // score width keys (32: the packed kernel), for build reports (0 for a plan
@@ -846,8 +972,9 @@ extern "C" int masked_mha_fwd_smem_bytes(int dh, int keys) {
 }
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. bfloat16 at
-// Dh a multiple of 16 takes the tile kernels, the rest the scalar ones.
-// Returns the cudaError_t of the launch (0 = success).
+// Dh a multiple of 16 takes the tile kernels, at Dh = 8 and L <= 32 the
+// narrow kernel, the rest the scalar ones. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                               const void* pad, void* out, int B, int H, int L,
                               int Dh, int causal, int dtype, void* stream) {
@@ -857,6 +984,8 @@ extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && Dh % 16 == 0)
     return static_cast<int>(dispatch_tiles(q, k, v, pad, out, B, H, L, Dh, causal, s));
+  if (dtype == 1 && Dh == nm::kDh && L <= nm::kMaxL)
+    return static_cast<int>(dispatch_narrow(q, k, v, pad, out, B * H, H, L, causal, s));
   if (L <= 64)
     return dtype == 0
                ? launch_short<float>(q, k, v, pad, out, B, H, L, Dh, causal, s)

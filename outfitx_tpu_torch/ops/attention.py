@@ -26,8 +26,12 @@ all of its keys at once, on the tensor cores. The backward packs ``64 //
 L`` slabs a tile at every L <= 64 and repeats the plain version's float32
 arithmetic up to the roundings of P and dS (S and dP in order over Dh, the
 softmax's and the row sum's tree, ``_tree_sum``), then takes dV, dQ and dK
-on the tensor cores. float32 (the correctness route) and bfloat16 at other
-Dh run the scalar kernels.
+on the tensor cores. bfloat16 at Dh = 8 up to L = 32 (the set transformer
+over resnet_sbert embeddings) takes both kernels' narrow-head route
+(``csrc/narrow_mha.cuh``): groups of whole slabs streamed by bulk copies, a
+thread a query row repeating the same float32 arithmetic, the products
+that round once on the tensor cores. float32 (the correctness route) and
+bfloat16 at other Dh run the scalar kernels.
 """
 
 from __future__ import annotations

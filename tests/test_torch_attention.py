@@ -434,7 +434,7 @@ class _FakeEntry:
         (17, 96, torch.bfloat16), (50, 64, torch.bfloat16), (77, 64, torch.bfloat16),
         (196, 64, torch.bfloat16), (17, 96, torch.float32), (17, 24, torch.bfloat16),
         (9, 16, torch.bfloat16), (33, 48, torch.bfloat16), (256, 128, torch.bfloat16),
-        (65, 64, torch.float32), (9, 8, torch.bfloat16),
+        (65, 64, torch.float32), (9, 8, torch.bfloat16), (17, 8, torch.bfloat16),
     ],
 )
 def test_forward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype):
@@ -649,11 +649,13 @@ def test_quad_split_and_plain_version_take_the_64_slot_tree(l):
         (17, 96, torch.bfloat16), (9, 16, torch.bfloat16), (1, 16, torch.bfloat16),
         (32, 32, torch.bfloat16), (33, 48, torch.bfloat16), (64, 128, torch.bfloat16),
         (17, 96, torch.float32), (64, 8, torch.float32), (17, 24, torch.bfloat16),
+        (17, 8, torch.bfloat16),
     ],
 )
 def test_backward_launch_hands_the_kernel_its_tile_plan(monkeypatch, l, dh, dtype):
     """On every route (the tile kernel for bfloat16 at Dh % 16 == 0, the
-    scalar kernel else) the C entry receives the same 15 arguments: the
+    narrow kernel at Dh = 8 up to L = 32, the scalar kernel else) the C
+    entry receives the same 15 arguments: the
     seven tensors, the shape, the causal flag, the dtype code and the
     current stream's handle, once per call; it plans the tiles itself."""
     entry = _FakeEntry()
