@@ -83,7 +83,15 @@ Phases, each printing one JSON line:
             would need there; (f) the CIR trainer's host assembly of one
             epoch of 36,864 outfits on the native route (which must build)
             and the python route, seconds an epoch and a step, each held
-            to the batch invariants;
+            to the batch invariants; (g) a resume at the envelope:
+            ``CPTrainer`` A trains 2 epochs with a rolling ``latest``, B
+            (the same config) resumes A's first-epoch ``latest`` and
+            trains the second: B's parameters, Adam moments and count
+            bit-equal to A's final ones, exact steps and launches; the
+            saved optimizer state in optax's layout (the JAX package's
+            skeleton, ``mu`` of ``jax_params_from_state_dict``'s shapes);
+            the checkpoint's bytes, a synchronous save's and the resume's
+            seconds;
 6. precompute  ``PrecomputeRunner`` with the SigLIP item encoder at full
             width (ViT-B/16 at 196 tokens, text at L=64, d=768, 12 layers,
             random weights from seed 0): 4,096 synthetic items at batch 2048
@@ -1549,6 +1557,7 @@ def _cp_trainer_run(cfg, data, root):
     from outfitx_tpu_torch.core.config import CPTrainConfig
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.layernorm import layer_norm
+    from outfitx_tpu_torch.train.checkpoint import adam_state
     from outfitx_tpu_torch.train.cp_trainer import CPTrainer
 
     tcfg = CPTrainConfig(
@@ -1588,7 +1597,8 @@ def _cp_trainer_run(cfg, data, root):
     check(sorted(final["params"]) == sorted(live), "checkpoint parameter names")
     check(all(torch.equal(final["params"][n], live[n].float().cpu()) for n in live),
           "checkpoint parameters differ from the model's")
-    check(int(final["opt_state"]["count"]) == TRAIN_STEPS, "checkpoint optimizer count")
+    count, _, _ = adam_state(final["opt_state"])  # optax's two counts, equal
+    check(count == TRAIN_STEPS, "checkpoint optimizer count")
     check(tcfg.async_saves, "CPTrainer saves are not asynchronous")
     best = t.ckpt.restore("best_auc")
     check(best["meta"]["epoch"] == 0 and sorted(best["params"]) == sorted(live),
@@ -1714,6 +1724,111 @@ def _fitb_run(cfg, data, cir_trainer, root):
         "cpu_questions": n, "agree_with_cpu_f32": agree,
         "worst_rel_gap": float(gaps.max()),
     }, counts
+
+
+def _leaf_shapes(tree, path=""):
+    """(path, shape) of every leaf of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_shapes(tree[k], f"{path}/{k}")]
+    return [(path, tuple(np.shape(tree)))]
+
+
+def _resume_run(cfg, data, root):
+    """(g): a resume at the envelope. Trainer A (CPTrainer, B=TRAIN_B x
+    A=TRAIN_A, 2 epochs, ``save_every_epochs=1``) keeps its first epoch's
+    ``latest``; trainer B, the same config, resumes it and trains epoch 1.
+    B's parameters, Adam moments and count must be bit-equal to A's final
+    ones, its steps and launches exact. The saved optimizer state must have
+    optax's skeleton (the JAX package's), its counts 0-d int32 and its
+    ``mu`` leaves the shapes of ``jax_params_from_state_dict``'s. Returns
+    the numbers (the checkpoint's bytes, a synchronous save's and B's
+    resume's seconds) and B's launches."""
+    from outfitx_tpu_torch.core.config import CPTrainConfig
+    from outfitx_tpu_torch.models.from_jax import jax_params_from_state_dict
+    from outfitx_tpu_torch.train.checkpoint import read_checkpoint_tree
+    from outfitx_tpu_torch.train.cp_trainer import CPTrainer
+
+    base = root / "resume"
+    kept = base / "latest_epoch0"
+
+    class FirstLatestKept(CPTrainer):
+        def maybe_save_latest(self, epoch):
+            super().maybe_save_latest(epoch)
+            if epoch == 0:
+                self.ckpt.wait()
+                shutil.copytree(self.ckpt.path("latest"), kept)
+
+    def trainer(cls, side):
+        tcfg = CPTrainConfig(
+            n_epochs=2, batch_size=TRAIN_B, accumulation_steps=TRAIN_A, save_every_epochs=1,
+            checkpoint_dir=str(base / side / "ckpt"), log_dir=str(base / side / "logs"),
+        )
+        return cls(tcfg, cfg, catalog=data.catalog, train_split=data.cp_train,
+                   valid_split=data.cp_valid, device="cuda")
+
+    with trainer(FirstLatestKept, "a") as a:
+        _reset_ocp_counts()
+        a.run()
+        torch.cuda.synchronize()
+        a_launches = tuple(_ocp_counts().values())
+        want = tuple(2 * n for n in _expected_launches(cfg, a, TRAIN_STEPS))
+        check(a.state.step == 2 * TRAIN_STEPS, f"resume trainer A took {a.state.step} steps")
+        check(a_launches == want, f"resume trainer A launches {a_launches}, expected {want}")
+        opt = a.state.optimizer
+        a_final = {
+            "params": {n: p.detach().cpu().clone() for n, p in a.model.named_parameters()},
+            "mu": [m.cpu().clone() for m in opt.mu], "nu": [m.cpu().clone() for m in opt.nu],
+            "count": opt.count,
+        }
+        want_shapes = _leaf_shapes(jax_params_from_state_dict(a.model.state_dict()))
+        t0 = time.perf_counter()
+        a._save("timed", with_optimizer=True, sync=True, epoch=1)
+        save_s = time.perf_counter() - t0
+
+    saved = read_checkpoint_tree(kept)["opt_state"]
+    clip, (adam, decay, schedule) = saved
+    check(clip == [] and decay == [] and len(adam) == 3 and len(schedule) == 1,
+          "the saved optimizer state does not have optax's skeleton")
+    for c in (adam[0], schedule[0]):
+        check(c.shape == () and c.dtype == np.int32 and int(c) == TRAIN_STEPS,
+              f"saved optimizer count {c!r}")
+    for i, key in ((1, "mu"), (2, "nu")):
+        check(_leaf_shapes(adam[i]) == want_shapes,
+              f"saved {key} leaves differ from jax_params_from_state_dict's")
+    nbytes = (kept / "state.npz").stat().st_size
+
+    with trainer(CPTrainer, "b") as b:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.resume(str(kept))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check(b.epoch == 1 and b.state.step == b.state.optimizer.count == TRAIN_STEPS,
+              f"resumed at epoch {b.epoch}, step {b.state.step}")
+        _reset_ocp_counts()
+        b.run()
+        torch.cuda.synchronize()
+        b_launches = _ocp_counts()
+        want = dict(zip(b_launches, _expected_launches(cfg, b, TRAIN_STEPS)))
+        check(b.state.step == 2 * TRAIN_STEPS, f"resumed trainer took {b.state.step} steps")
+        check(b_launches == want, f"resumed trainer launches {b_launches}, expected {want}")
+        opt = b.state.optimizer
+        check(opt.count == a_final["count"], "resumed optimizer count")
+        check(all(torch.equal(p.detach().cpu(), a_final["params"][n])
+                  for n, p in b.model.named_parameters()),
+              "resumed parameters differ from the uninterrupted run's")
+        for key in ("mu", "nu"):
+            check(all(torch.equal(m.cpu(), w) for m, w in zip(getattr(opt, key), a_final[key])),
+                  f"resumed Adam {key} differs from the uninterrupted run's")
+        b.run_mode = "test"  # no final save
+    shutil.rmtree(base, ignore_errors=True)
+    return {
+        "epochs": 2, "resumed_at_epoch": 1, "steps_a_run": a.state.step,
+        "checkpoint_bytes": nbytes, "checkpoint_leaves": len(want_shapes),
+        "sync_save_s": save_s, "resume_s": resume_s,
+        "bit_equal": "parameters, mu, nu and count of B equal A's final ones",
+        "launches_a": dict(zip(b_launches, a_launches)), "launches": b_launches,
+    }, b_launches
 
 
 def _step_timing(cp_trainer, profile: bool = True):
@@ -1992,12 +2107,17 @@ def phase_train():
     t0 = time.perf_counter()
     host = _host_routes(cp_data)
     host["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resume, resume_launches = _resume_run(cfg, cp_data, root)
+    resume["seconds"] = time.perf_counter() - t0
     emit({
         "phase": "train",
         "d_embed": cfg.d_embed, "n_layers": cfg.transformer.n_layers,
         "catalog_items": cp_data.catalog.n_items, "data_s": data_s,
         "step_check": step_check, "cp_trainer": cp, "cir_trainer": cir,
         "fitb": fitb, **timing, "remat": remat, "host_routes": host,
+        "resume": resume,
     })
     return {
         "train": {
@@ -2007,6 +2127,7 @@ def phase_train():
         },
         "fitb": fitb_counts,
         "train_remat": dict(remat_launches),
+        "train_resume": resume_launches,
     }
 
 

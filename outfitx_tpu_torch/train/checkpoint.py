@@ -10,12 +10,20 @@ A checkpoint is a directory holding:
   config.
 
 Parameters are written in the JAX package's tree layout
-(``models/from_jax.py:jax_params_from_state_dict``), so either package can
-warm-start from a checkpoint of the other, and the JAX ``CheckpointManager``
-restores this package's checkpoints. The original-CP trainer's tree is
-``{"model": ..., "enc_heads": {"fc", "proj"}}``, as the JAX trainer's. The
-optimizer state is this package's own subtree: ``count`` and the Adam
-moments ``mu`` and ``nu`` keyed by parameter name.
+(``params_tree``: ``models/from_jax.py:jax_params_from_state_dict``), so
+either package can warm-start from a checkpoint of the other, and the JAX
+``CheckpointManager`` restores this package's checkpoints. The original-CP
+trainer's tree is ``{"model": ..., "enc_heads": {"fc", "proj"}}``, as the
+JAX trainer's. The optimizer state is in optax's layout, the one the JAX
+package writes for ``chain(clip_by_global_norm, adamw(schedule))``
+(``optax_state``): ``[[], [[count, mu, nu], [], [count]]]``, the Adam
+moments ``mu`` and ``nu`` trees of the parameters' layout, made by the same
+mapping as the parameters, and both counts 0-d int32. So a run resumes in
+either package from the other's checkpoint (``load_optimizer_tree``), and
+the JAX manager's ``restore(template=...)``, which unflattens by leaf order,
+finds its leaves where it expects them. Checkpoints this package wrote
+before it wrote optax's layout (``{"count", "mu", "nu"}``, the moments keyed
+by parameter name) still load.
 
 ``save`` writes on the calling thread. ``save_async`` copies every leaf to
 the host on the calling thread (a snapshot: the optimizer updates the
@@ -48,66 +56,136 @@ from outfitx_tpu_torch.models.from_jax import (  # noqa: F401 (re-exported)
 )
 
 
-def optimizer_tree(model: torch.nn.Module, optimizer, full=None) -> Dict[str, Any]:
-    """The optimizer's state as a tree keyed by parameter name. ``full(p,
+def params_tree(params: Dict[str, Any], enc_heads: Optional[Dict[str, Any]] = None):
+    """The JAX package's parameter tree of an ``OutfitXModel`` state dict,
+    and of original-CP's encoder heads (JAX layout) where given."""
+    tree = jax_params_from_state_dict(params)
+    return tree if enc_heads is None else {"model": tree, "enc_heads": enc_heads}
+
+
+def params_payload(tree) -> Dict[str, Any]:
+    """The inverse of ``params_tree``, as ``restore`` returns it:
+    ``{"params": state dict}``, with ``"enc_heads"`` for original-CP's
+    tree."""
+    out = {"params": state_dict_from_jax(tree.get("model", tree))}
+    if "enc_heads" in tree:
+        out["enc_heads"] = tree["enc_heads"]
+    return out
+
+
+def optax_state(count, mu, nu) -> list:
+    """The state of the JAX package's optimizer, ``optax.chain(
+    clip_by_global_norm, adamw(schedule))``, as its manager writes it, the
+    NamedTuples as index-ordered lists: ``(EmptyState(),
+    (ScaleByAdamState(count, mu, nu), EmptyState(),
+    ScaleByScheduleState(count)))``, the clip's and the weight decay's states
+    empty. This package's AdamW keeps one count for the bias correction and
+    the schedule, so both counts take it."""
+    count = np.asarray(count, dtype=np.int32)
+    return [[], [[count, mu, nu], [], [count.copy()]]]
+
+
+def adam_state(tree):
+    """``(count, mu, nu)`` of a saved optimizer state: optax's layout
+    (``optax_state``, with the moments in the parameters' tree layout), or
+    this package's layout before it (``{"count", "mu", "nu"}``, the moments
+    keyed by parameter name). Raises ValueError for any other tree, and
+    where optax's two counts differ."""
+    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
+        return int(np.asarray(tree["count"])), tree["mu"], tree["nu"]
+    try:
+        clip, (adam, decay, (sched_count,)) = tree
+        count, mu, nu = adam
+    except (TypeError, ValueError):
+        raise ValueError(_MISMATCH) from None
+    if not all(isinstance(x, list) and not x for x in (clip, decay)):
+        raise ValueError(_MISMATCH)
+    count, sched_count = int(np.asarray(count)), int(np.asarray(sched_count))
+    if count != sched_count:
+        raise ValueError(
+            f"the checkpoint's Adam count {count} and schedule count {sched_count} "
+            "differ: this package's optimizer keeps one count for both"
+        )
+    return count, mu, nu
+
+
+_MISMATCH = (
+    "the checkpoint's optimizer state does not match this model's parameters "
+    "(one saved before the QKV fusion holds per-projection wq/wk/wv moments), "
+    "so a full resume from it is not supported: warm-start the parameters "
+    "into a fresh optimizer instead (a CIR trainer's warm_start_from, or "
+    "load_params on CheckpointManager.restore(...)['params'])"
+)
+
+
+def _size(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_size(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_size(v) for v in tree)
+    return int(np.prod(np.shape(tree)))
+
+
+def optimizer_tree(model: torch.nn.Module, optimizer, full=None, to_tree=None) -> list:
+    """The optimizer's state in optax's layout (``optax_state``). ``full(p,
     moment)`` makes a mesh rank's block of a moment whole (a collective:
-    every rank calls it)."""
+    every rank calls it); ``to_tree`` maps the moments, keyed by
+    parameter name in ``model``, as it maps the parameters (default
+    ``params_tree``, for an ``OutfitXModel``)."""
     names = {id(p): n for n, p in model.named_parameters()}
     state = optimizer.state_dict()
     full = full or (lambda p, m: m)
+    to_tree = to_tree or params_tree
 
-    def keyed(moments):
-        return {
-            names[id(p)]: full(p, m).detach().cpu().numpy()
-            for p, m in zip(optimizer.params, moments)
-        }
+    def tree(moments):
+        return to_tree({names[id(p)]: full(p, m) for p, m in zip(optimizer.params, moments)})
 
-    return {
-        "count": np.asarray(state["count"], dtype=np.int32),
-        "mu": keyed(state["mu"]),
-        "nu": keyed(state["nu"]),
-    }
+    return optax_state(state["count"], tree(state["mu"]), tree(state["nu"]))
 
 
-def load_optimizer_tree(model: torch.nn.Module, optimizer, tree, local=None) -> None:
-    """The inverse of ``optimizer_tree``; ``local(p, moment)`` cuts a whole
-    moment to a mesh rank's block. Raises ValueError, loading nothing, when
-    the moments are not keyed by this model's parameter names: the JAX
-    package's optimizer state is optax's tree, and one saved before the QKV
-    fusion holds moments of the per-projection wq/wk/wv."""
+def load_optimizer_tree(
+    model: torch.nn.Module, optimizer, tree, local=None, named=None
+) -> None:
+    """The inverse of ``optimizer_tree``, from either layout that
+    ``adam_state`` reads; ``local(p, moment)`` cuts a whole moment to a mesh
+    rank's block, and ``named`` maps a moment's tree as the parameters'
+    (default ``params_payload(tree)["params"]``, for an ``OutfitXModel``).
+    Raises ValueError, loading nothing, when the counts differ or the
+    moments do not cover exactly this model's trainable parameters with
+    their shapes (an optax state saved before the QKV fusion holds moments
+    of the per-projection wq/wk/wv)."""
     names = {id(p): n for n, p in model.named_parameters()}
     want = sorted(names[id(p)] for p in optimizer.params)
-    if not (
-        isinstance(tree, dict)
-        and all(isinstance(tree.get(k), dict) and sorted(tree[k]) == want for k in ("mu", "nu"))
-    ):
-        raise ValueError(
-            "the checkpoint's optimizer state does not match this model's parameters "
-            "(a JAX package checkpoint's is optax's; one saved before the QKV fusion "
-            "holds per-projection wq/wk/wv moments), so a full resume from it is not "
-            "supported: warm-start the parameters into a fresh optimizer instead "
-            "(a CIR trainer's warm_start_from, or load_params on "
-            "CheckpointManager.restore(...)['params'])"
-        )
+    named = named or (lambda t: params_payload(t)["params"])
     local = local or (lambda p, m: m)
-
-    def moments(key):
-        return [local(p, np.asarray(tree[key][names[id(p)]])) for p in optimizer.params]
-
-    optimizer.load_state_dict({
-        "count": int(np.asarray(tree["count"])),
-        "mu": moments("mu"),
-        "nu": moments("nu"),
-    })
+    count, *trees = adam_state(tree)
+    moments = []
+    for t in trees:
+        try:  # a name-keyed moment is this package's layout before optax's
+            by_name = t if isinstance(t, dict) and sorted(t) == want else named(t)
+            ms = [local(p, torch.as_tensor(by_name[names[id(p)]])) for p in optimizer.params]
+        except (KeyError, TypeError, AttributeError, IndexError, RuntimeError):
+            raise ValueError(_MISMATCH) from None
+        if (
+            sorted(by_name) != want
+            or _size(t) != _size(by_name)  # a leaf the mapping left out
+            or any(m.shape != p.shape for p, m in zip(optimizer.params, ms))
+        ):
+            raise ValueError(_MISMATCH)
+        moments.append(ms)
+    optimizer.load_state_dict({"count": count, "mu": moments[0], "nu": moments[1]})
 
 
 def _flatten(tree, leaves):
-    """Skeleton of ``tree`` with leaves numbered in sorted-key order (the
-    order ``jax.tree.flatten`` walks a dict). Each leaf is copied to a
-    C-ordered host array: a tensor on the card is copied on the calling
-    thread, synchronised on the current stream."""
+    """Skeleton of ``tree`` with leaves numbered in the order
+    ``jax.tree.flatten`` walks it: a dict's values in sorted-key order, a
+    list's in order (an empty one stays ``[]``, an optax ``EmptyState``).
+    Each leaf is copied to a C-ordered host array: a tensor on the card is
+    copied on the calling thread, synchronised on the current stream."""
     if isinstance(tree, dict):
         return {k: _flatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_flatten(v, leaves) for v in tree]
     if isinstance(tree, torch.Tensor):
         tree = tree.detach().cpu().numpy()
     leaves.append(np.asarray(tree).copy(order="C"))  # keeps 0-d leaves 0-d
@@ -165,10 +243,7 @@ class CheckpointManager:
     ) -> Dict[str, Any]:
         """Every leaf copied to the host, the tree's skeleton and specs,
         and the meta record: all that the files hold."""
-        tree = jax_params_from_state_dict(params)
-        if enc_heads is not None:
-            tree = {"model": tree, "enc_heads": enc_heads}
-        payload = {"params": tree}
+        payload = {"params": params_tree(params, enc_heads)}
         if opt_state is not None:
             payload["opt_state"] = opt_state
         leaves: list = []
@@ -292,12 +367,13 @@ class CheckpointManager:
 
     def restore(self, tag_or_path: str | pathlib.Path) -> Dict[str, Any]:
         """{'params': state dict (float32, CPU) of the set transformer,
-        'opt_state': the saved optimizer tree or None, 'meta': dict}, and
-        'enc_heads' (the JAX tree, numpy) where the checkpoint is
-        original-CP's. Reads this package's checkpoints and the JAX
-        package's ``state.npz`` checkpoints (whose optimizer subtree is
-        optax's, returned as it is), those from before the QKV fusion
-        included (``migrate_legacy_attn``). Waits for queued saves first."""
+        'opt_state': the saved optimizer tree as it is (``adam_state``
+        reads it) or None, 'meta': dict}, and 'enc_heads' (the JAX tree,
+        numpy) where the checkpoint is original-CP's (``params_payload``).
+        Reads this package's checkpoints and the JAX package's
+        ``state.npz`` checkpoints, those from before the QKV fusion included
+        (``migrate_legacy_attn`` on the parameters). Waits for queued saves
+        first."""
         self.wait()
         path = pathlib.Path(tag_or_path)
         if not path.exists():
@@ -307,15 +383,7 @@ class CheckpointManager:
         if (path / "meta.json").exists():
             with open(path / "meta.json", encoding="utf-8") as f:
                 meta = json.load(f)
-        params = raw["params"]
-        out = {
-            "params": state_dict_from_jax(params.get("model", params)),
-            "opt_state": raw.get("opt_state"),
-            "meta": meta,
-        }
-        if "enc_heads" in params:
-            out["enc_heads"] = params["enc_heads"]
-        return out
+        return {**params_payload(raw["params"]), "opt_state": raw.get("opt_state"), "meta": meta}
 
 
 class BestMetricTracker:

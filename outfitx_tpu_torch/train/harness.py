@@ -42,6 +42,8 @@ from outfitx_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_optimizer_tree,
     optimizer_tree,
+    params_payload,
+    params_tree,
 )
 from outfitx_tpu_torch.train.metrics_log import MetricsLogger
 
@@ -238,10 +240,19 @@ class Trainer(abc.ABC):
             self.metrics_log.log(split, epoch, metrics)
 
     # ------------------------------------------------------ checkpoints --
-    def checkpoint_params(self) -> Dict[str, Any]:
+    def checkpoint_params(self, named=None) -> Dict[str, Any]:
         """What a checkpoint holds of the parameters, as
-        ``CheckpointManager.save`` takes it."""
-        return {"params": self.full_params(self.state.model)}
+        ``CheckpointManager.save`` takes it. ``named`` (a tensor for each of
+        the optimizer's parameters, keyed by its name in ``state.model``:
+        an Adam moment) takes the parameters' place, so that the moments
+        are written in the parameters' layout."""
+        return {"params": self.full_params(self.state.model) if named is None else named}
+
+    def named_params(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """The inverse of ``checkpoint_params(named)``: ``restore``'s
+        payload (or a moment's, ``params_payload``) keyed by
+        ``state.model``'s parameter names."""
+        return payload["params"]
 
     def load_checkpoint_params(self, payload: Dict[str, Any]) -> None:
         """The inverse of ``checkpoint_params``, from ``restore``'s
@@ -252,12 +263,14 @@ class Trainer(abc.ABC):
         """Save through the writer thread when ``cfg.async_saves``, unless
         ``sync``. Under a mesh every rank gathers the whole state (a
         collective) and rank 0 writes it."""
-        model = self.state.model
         full = self.par.full if self.par is not None else None
         params = self.checkpoint_params()
-        opt_state = (
-            optimizer_tree(model, self.state.optimizer, full) if with_optimizer else None
-        )
+        opt_state = None
+        if with_optimizer:
+            opt_state = optimizer_tree(
+                self.state.model, self.state.optimizer, full,
+                lambda named: params_tree(**self.checkpoint_params(named)),
+            )
         if not self.is_writer:
             return
         save = self.ckpt.save if sync or not self.cfg.async_saves else self.ckpt.save_async
@@ -289,14 +302,15 @@ class Trainer(abc.ABC):
 
     def resume(self, tag_or_path: str = "final") -> None:
         """Restore parameters (and optimizer state, step and epoch when
-        saved) and continue from the next epoch. An optimizer state that is
-        not this package's (a JAX checkpoint's, one from before the QKV
-        fusion) raises before anything is loaded."""
+        saved) and continue from the next epoch, from a checkpoint of either
+        package. An optimizer state that does not fit this model (one from
+        before the QKV fusion) raises before anything is loaded."""
         payload = self.ckpt.restore(tag_or_path)
         if payload["opt_state"] is not None:
-            local = self.par.local if self.par is not None else None
             load_optimizer_tree(
-                self.state.model, self.state.optimizer, payload["opt_state"], local
+                self.state.model, self.state.optimizer, payload["opt_state"],
+                self.par.local if self.par is not None else None,
+                lambda tree: self.named_params(params_payload(tree)),
             )
             self.state.step = int(payload["meta"].get("step", 0))
         self.load_checkpoint_params(payload)

@@ -216,15 +216,23 @@ class OriginalCPModel(nn.Module):
         return self.model.cp_forward(self.encode_items(mb), mb["mask"], generator=generator)
 
 
-def _linear_tree(lin: nn.Linear) -> Dict[str, torch.Tensor]:
-    """An ``nn.Linear`` as a JAX ``linear`` ({'w': (in, out), 'b'})."""
-    return {"w": lin.weight.T, "b": lin.bias}
+# The JAX trainer's trainable encoder heads, by their names in
+# ``OriginalCPModel``.
+HEADS = {"fc": "encoder.vision.fc", "proj": "encoder.text.proj"}
 
 
-@torch.no_grad()
-def _load_linear(lin: nn.Linear, tree) -> None:
-    lin.weight.copy_(torch.as_tensor(np.asarray(tree["w"])).T)
-    lin.bias.copy_(torch.as_tensor(np.asarray(tree["b"])))
+def _linear_tree(named, prefix: str) -> Dict[str, torch.Tensor]:
+    """An ``nn.Linear``'s weight and bias in ``named`` (or their Adam
+    moments) as a JAX ``linear`` ({'w': (in, out), 'b'})."""
+    return {"w": named[prefix + ".weight"].T, "b": named[prefix + ".bias"]}
+
+
+def _linear_named(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_linear_tree``."""
+    return {
+        prefix + ".weight": torch.as_tensor(np.asarray(tree["w"])).T,
+        prefix + ".bias": torch.as_tensor(np.asarray(tree["b"])),
+    }
 
 
 class OriginalCPTrainer(Trainer):
@@ -308,21 +316,33 @@ class OriginalCPTrainer(Trainer):
         self.stage = RawBatchStager(self._source, self.device)
 
     # ------------------------------------------------------ checkpoints --
-    def checkpoint_params(self) -> Dict[str, object]:
+    def checkpoint_params(self, named=None) -> Dict[str, object]:
+        """The JAX trainer's tree: the set transformer's state dict and the
+        encoder's trainable heads, from the live parameters or from
+        ``named`` (a tensor for each trainable parameter of ``self.net``,
+        keyed by its name there: an Adam moment)."""
+        if named is None:
+            named = dict(self.net.named_parameters())
+            named.update(("model." + k, v) for k, v in self.full_params(self.model).items())
         heads = {}
         if self.encoder.has_trainable_heads:
-            heads = {
-                "fc": _linear_tree(self.encoder.vision.fc),
-                "proj": _linear_tree(self.encoder.text.proj),
-            }
-        return {"params": self.full_params(self.model), "enc_heads": heads}
+            heads = {key: _linear_tree(named, prefix) for key, prefix in HEADS.items()}
+        model = {k[len("model."):]: v for k, v in named.items() if k.startswith("model.")}
+        return {"params": model, "enc_heads": heads}
 
+    def named_params(self, payload) -> Dict[str, object]:
+        named = {"model." + k: v for k, v in payload["params"].items()}
+        for key, tree in (payload.get("enc_heads") or {}).items():
+            named.update(_linear_named(tree, HEADS[key]))
+        return named
+
+    @torch.no_grad()
     def load_checkpoint_params(self, payload) -> None:
         self.load_params(self.model, payload["params"])
-        heads = payload.get("enc_heads") or {}
-        if heads:
-            _load_linear(self.encoder.vision.fc, heads["fc"])
-            _load_linear(self.encoder.text.proj, heads["proj"])
+        params = dict(self.net.named_parameters())
+        for name, value in self.named_params(payload).items():
+            if not name.startswith("model."):
+                params[name].copy_(value)
 
     # ------------------------------------------------------------ train --
     def step_selections(self, split, epoch: int) -> Iterator[List[np.ndarray]]:

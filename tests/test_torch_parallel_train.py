@@ -228,6 +228,12 @@ with CPTrainer(tcfg.CPTrainConfig(
 ), chain_cfg, catalog=data.catalog, train_split=data.cp_train, valid_split=data.cp_valid, device="cpu") as t:
     t.resume(args["jax_ckpt"])
     results["resume/epoch"] = t.epoch
+    results["resume/step"] = t.state.step
+    results["resume/count"] = t.state.optimizer.count
+    names = {id(p): n for n, p in t.model.named_parameters()}
+    for key in ("mu", "nu"):
+        for p, m in zip(t.state.optimizer.params, getattr(t.state.optimizer, key)):
+            results[f"resume{rank}/{key}/{names[id(p)]}"] = m.numpy().copy()
     for n, p in t.model.named_parameters():
         results[f"resume{rank}/{n}"] = p.data.numpy().copy()
     for n, v in t.full_params(t.model).items():
@@ -321,7 +327,7 @@ def setup(tiny_cfg, tmp_path_factory):
     jmesh = jax_make_mesh(JaxMeshSpec(data=2, model=2))
     sharded = jax_shard_params(jmesh, params, jmodel.param_partition_specs(fsdp=True))
     jckpt = JaxCheckpoints(tmp / "jaxckpt", "meshed")
-    jax_ckpt = jckpt.save("latest", params=sharded, epoch=4)
+    jax_ckpt = jckpt.save("latest", params=sharded, opt_state=_optax_state(params), step=3, epoch=4)
     import dataclasses
 
     cfg_json = dataclasses.asdict(port_config(tiny_cfg))
@@ -338,6 +344,19 @@ def setup(tiny_cfg, tmp_path_factory):
         "tmp": tmp, "sd0": sd0, "params": params, "single": single, "jax": jaxed,
         "meshed": meshed, "cfg": tiny_cfg, "jmesh": jmesh, "jax_ckpt": jax_ckpt,
     }
+
+
+def _optax_state(params, count=3):
+    """The JAX optimizer's state over ``params`` with ``count`` steps taken
+    and random moments (nu positive)."""
+    clip, (adam, decay, sched) = make_optimizer(jcfg.OptimizerConfig(), 10).init(params)
+    rng = np.random.default_rng(4)
+    mu, nu = (
+        jax.tree.map(lambda x: f(rng.standard_normal(x.shape)).astype(np.float32), params)
+        for f in (lambda a: a, np.abs)
+    )
+    n = jnp.asarray(count, jnp.int32)
+    return (clip, (adam._replace(count=n, mu=mu, nu=nu), decay, sched._replace(count=n)))
 
 
 def _patch_port_masks(masks):
@@ -705,18 +724,31 @@ def test_meshed_chain_fitb_and_checkpoints_read_by_jax(setup):
 
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_jax_meshed_checkpoint_resumes_onto_shards(setup, name):
-    """A JAX checkpoint of FSDP+TP-sharded parameters resumes in the port's
-    meshed trainer: each rank's live blocks are its blocks of the tree."""
+    """A JAX checkpoint of FSDP+TP-sharded parameters and its optax state
+    resumes in the port's meshed trainer: each rank's live blocks of the
+    parameters and of both Adam moments are its blocks of the trees."""
     d, m, fsdp = MESHES[name]
     want = load_jax_checkpoint(setup["jax_ckpt"])
+    adam = JaxCheckpoints(setup["tmp"] / "jaxckpt", "meshed").restore("latest")["opt_state"][1][0]
+    moments = {key: state_dict_from_jax(adam[i]) for i, key in ((1, "mu"), (2, "nu"))}
     cfg = port_config(setup["cfg"])
+
+    def block(sd, rank):
+        return shard_state_dict({k: v.numpy() for k, v in sd.items()}, cfg,
+                                {DATA_AXIS: d, MODEL_AXIS: m}, (rank // m, rank % m), fsdp=fsdp)
+
     for rank, res in enumerate(setup["meshed"][name]):
         assert res["resume/epoch"] == 5
-        mine = shard_state_dict({k: v.numpy() for k, v in want.items()}, cfg,
-                                {DATA_AXIS: d, MODEL_AXIS: m}, (rank // m, rank % m), fsdp=fsdp)
-        for n, v in mine.items():
+        assert res["resume/step"] == res["resume/count"] == 3
+        for n, v in block(want, rank).items():
             np.testing.assert_array_equal(res[f"resume{rank}/{n}"], v)
             np.testing.assert_array_equal(res["resume/full/" + n], want[n].numpy())
+        for key, sd in moments.items():
+            mine = block(sd, rank)
+            assert sorted(mine) == sorted(k[len(f"resume{rank}/{key}/"):] for k in res
+                                          if k.startswith(f"resume{rank}/{key}/"))
+            for n, v in mine.items():
+                np.testing.assert_array_equal(res[f"resume{rank}/{key}/{n}"], v)
 
 
 def test_block_attention_and_heads_fail_on_a_model_axis(tiny_cfg):

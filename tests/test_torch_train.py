@@ -489,8 +489,9 @@ def test_cp_checkpoint_reads_back_in_both_packages(cp_runs):
     final = ckpt.restore("final")
     for k in live:
         assert torch.equal(final["params"][k], live[k]), k
-    assert final["opt_state"]["count"].shape == ()
-    assert int(final["opt_state"]["count"]) == final["meta"]["step"] == 8
+    adam, schedule = final["opt_state"][1][0], final["opt_state"][1][2]
+    assert adam[0].shape == schedule[0].shape == ()
+    assert int(adam[0]) == int(schedule[0]) == final["meta"]["step"] == 8
     # The JAX model on the restored tree scores as the port does.
     rng = np.random.default_rng(0)
     emb = rng.standard_normal((4, 8, 64)).astype(np.float32)
