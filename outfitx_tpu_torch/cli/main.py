@@ -66,7 +66,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder", choices=["siglip", "clip", "resnet_sbert"], default="siglip")
     p.add_argument("--resume", default=None, help="checkpoint tag/path to resume from")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of epoch 1")
+                   help="write a torch.profiler trace of epoch 1, with the spans "
+                   "outfitx.step, .forward, .backward, .optimizer (and for "
+                   "original-CP .stage, .gather, .encode) over its kernels, and "
+                   "log each span's calls, host ms and device ms")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint each encoder layer: keep its input and recompute "
                    "its activations in the backward, for less memory a step")

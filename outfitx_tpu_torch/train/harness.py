@@ -13,7 +13,7 @@ the rolling ``latest``) go through the checkpoint writer thread when
 ``cfg.async_saves``; the final save is
 synchronous, after the queue is written. ``profile_dir`` set, epoch 1 (the
 second; the first pays the kernels' builds) is traced by ``torch.profiler``
-into a Chrome trace there.
+into a Chrome trace there, and the port's spans in it are logged.
 
 Usage::
 
@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from outfitx_tpu_torch.core import trace
 from outfitx_tpu_torch.core.config import TrainConfig
 from outfitx_tpu_torch.core.device import resolve_device
 from outfitx_tpu_torch.core.mesh import DATA_AXIS
@@ -208,7 +209,9 @@ class Trainer(abc.ABC):
 
     @contextlib.contextmanager
     def _profiled(self, epoch: int):
-        """A torch.profiler trace of epoch 1 into ``profile_dir``."""
+        """A torch.profiler trace of epoch 1 into ``profile_dir``, and a
+        line in the log for each of the port's spans (``core/trace.py``)
+        recorded in it: calls, host ms and device ms in all."""
         if self.profile_dir is None or epoch != 1:
             yield
             return
@@ -217,6 +220,7 @@ class Trainer(abc.ABC):
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        trace.clear()
         with profile(activities=activities) as prof:
             yield
         out = pathlib.Path(self.profile_dir)
@@ -224,6 +228,10 @@ class Trainer(abc.ABC):
         path = out / f"{self.model_name}_epoch{epoch}.trace.json"
         prof.export_chrome_trace(str(path))
         self.log(f"profiler trace written to {path}")
+        for name, (count, host_s, device_s) in trace.totals(trace.records()).items():
+            device = "-" if device_s is None else f"{device_s * 1e3:.3f}"
+            self.log(f"span {name}: {count} calls, host {host_s * 1e3:.3f} ms, "
+                     f"device {device} ms")
 
     # ---------------------------------------------------------- logging --
     def log(self, msg: str, level: int = logging.INFO) -> None:

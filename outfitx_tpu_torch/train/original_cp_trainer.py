@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from outfitx_tpu_torch.core.config import CPTrainConfig, ItemEncoderConfig, OutfitXConfig
+from outfitx_tpu_torch.core.trace import span
 from outfitx_tpu_torch.data.sampler import eval_batches
 from outfitx_tpu_torch.evalm import binary_classification_metrics
 from outfitx_tpu_torch.losses import focal_loss
@@ -132,7 +133,8 @@ class RawBatchStager:
     turn, and is copied without blocking; before a buffer is filled again
     the host waits for its last copy. The small per-outfit arrays (mask,
     label) go through pinned memory too. ``gather_s`` counts the host's
-    seconds in the gathers, waits included."""
+    seconds in the gathers, waits included: the stretch of each
+    ``outfitx.gather`` span, inside the call's ``outfitx.stage`` span."""
 
     def __init__(self, source: RawItemSource, device: torch.device):
         self.source = source
@@ -153,38 +155,47 @@ class RawBatchStager:
                 )
         return {k: t.numpy() for k, t in bufs.items()}
 
+    def _gather(self, rows: np.ndarray, slot: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The rows' raw inputs on the host, into pinned ``slot`` after its
+        last copy has left it: the stretch ``gather_s`` counts."""
+        with span("outfitx.gather"):
+            t0 = time.perf_counter()
+            if slot is None:
+                raw = self.source.gather(rows)
+            else:
+                if self._copied[slot] is not None:
+                    self._copied[slot].synchronize()
+                raw = self.source.gather(rows, out=self._host_buffers(slot, len(rows)))
+            self.gather_s += time.perf_counter() - t0
+        return raw
+
     def __call__(self, item_rows: np.ndarray, **host: np.ndarray) -> Dict[str, torch.Tensor]:
         """item_rows (B, L) -> the raw inputs reshaped (B, L, ...), and each
         array of ``host`` (mask, label), on the device."""
-        b, l = item_rows.shape
-        rows = item_rows.reshape(-1)
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            slot = self._turn
-            self._turn ^= 1
-            if self._copied[slot] is not None:
-                self._copied[slot].synchronize()
-            self.source.gather(rows, out=self._host_buffers(slot, len(rows)))
-            self.gather_s += time.perf_counter() - t0
-            out = {
-                k: self._slots[slot][k].to(self.device, non_blocking=True)
-                for k in RAW_KEYS
-            }
-            self._copied[slot] = torch.cuda.Event()
-            self._copied[slot].record()
-        else:
-            raw = self.source.gather(rows)
-            self.gather_s += time.perf_counter() - t0
-            out = {k: torch.from_numpy(v) for k, v in raw.items()}
-        out = {k: v.reshape(b, l, *v.shape[1:]) for k, v in out.items()}
-        for k, v in host.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+        with span("outfitx.stage"):
+            b, l = item_rows.shape
+            rows = item_rows.reshape(-1)
             if self.device.type == "cuda":
-                # from pageable memory the copy would wait for the card
-                # to finish its queue, and the gather would stop overlapping
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+                slot = self._turn
+                self._turn ^= 1
+                self._gather(rows, slot)
+                out = {
+                    k: self._slots[slot][k].to(self.device, non_blocking=True)
+                    for k in RAW_KEYS
+                }
+                self._copied[slot] = torch.cuda.Event()
+                self._copied[slot].record()
+            else:
+                out = {k: torch.from_numpy(v) for k, v in self._gather(rows).items()}
+            out = {k: v.reshape(b, l, *v.shape[1:]) for k, v in out.items()}
+            for k, v in host.items():
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    # from pageable memory the copy would wait for the card
+                    # to finish its queue, and the gather would stop overlapping
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
+            return out
 
 
 class OriginalCPModel(nn.Module):
@@ -205,11 +216,12 @@ class OriginalCPModel(nn.Module):
         """(B, L, ...) raw inputs -> (B, L, D) item embeddings, float32."""
         b, l = mb["mask"].shape
         images, ids, attn = (mb[k] for k in RAW_KEYS)
-        emb = self.encoder.encode(
-            images.reshape(b * l, *images.shape[2:]),
-            ids.reshape(b * l, -1),
-            attn.reshape(b * l, -1),
-        )
+        with span("outfitx.encode"):
+            emb = self.encoder.encode(
+                images.reshape(b * l, *images.shape[2:]),
+                ids.reshape(b * l, -1),
+                attn.reshape(b * l, -1),
+            )
         return emb.reshape(b, l, -1)
 
     def cp_forward(self, mb: Dict[str, torch.Tensor], *, generator=None) -> torch.Tensor:

@@ -9,7 +9,9 @@ the losses and gradients, scales both by 1/A (as the JAX package's
 ``_accumulate``), then clips and takes one AdamW step. Each microbatch draws
 its dropout masks from a fresh stream for (step, microbatch). The
 original-CP step takes its microbatches one at a time instead, raw items
-that its model encodes before the set transformer.
+that its model encodes before the set transformer. Spans
+(``core/trace.py``, recorded only under a profiler) mark each step, each
+microbatch's forward and backward, and the optimizer's part.
 
 Under a mesh (``state.par``) each rank takes its rows of every global
 microbatch (block d of ``data``, JAX's ``P("data")`` split) and its loss
@@ -28,6 +30,7 @@ from typing import Dict, Iterable, Iterator
 import torch
 
 from outfitx_tpu_torch.core.mesh import DATA_AXIS
+from outfitx_tpu_torch.core.trace import span
 from outfitx_tpu_torch.losses import focal_loss, set_wise_ranking_loss
 from outfitx_tpu_torch.models.outfit_transformer import OutfitXModel
 from outfitx_tpu_torch.ops.retrieval import fitb_pick
@@ -43,27 +46,23 @@ def gather(catalog: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def _accumulate(state: TrainState, loss_fn, microbatches: Iterable[Batch]):
-    """Forward and backward over ``microbatches``; leaves the mean gradient
-    in each ``p.grad`` and returns (mean loss, per-microbatch aux
-    outputs)."""
+    """Forward and backward over ``microbatches``; leaves the summed
+    gradient in each ``p.grad`` and returns (summed loss, per-microbatch
+    aux outputs). Each microbatch is taken from ``microbatches`` outside
+    its forward span."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
     total = None
     aux = []
     for i, mb in enumerate(microbatches):
-        loss, out = loss_fn(model, mb, state.dropout_generator(i))
-        loss.backward()
+        with span("outfitx.forward", i):
+            loss, out = loss_fn(model, mb, state.dropout_generator(i))
+        with span("outfitx.backward", i):
+            loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
         aux.append(out)
-    scale = 1.0 / len(aux)
-    for p in state.optimizer.params:
-        if p.grad is not None:
-            p.grad.mul_(scale)
-    if state.par is not None:
-        state.par.reduce_gradients(state.optimizer.params)
-        total = state.par.all_reduce(total.reshape(1).clone(), DATA_AXIS)[0]
-    return total * scale, aux
+    return total, aux
 
 
 def _focal(scores, labels, par, **kw):
@@ -79,9 +78,22 @@ def _split(batch: Batch) -> Iterator[Batch]:
     return ({k: v[i] for k, v in batch.items()} for i in range(a))
 
 
-def _apply(state: TrainState) -> None:
-    state.optimizer.step()
+def _apply(state: TrainState, total: torch.Tensor, n: int) -> torch.Tensor:
+    """Scale the summed gradients and loss of ``n`` microbatches by 1/n,
+    sum both over the mesh's data axis, take one AdamW step; returns the
+    mean loss."""
+    with span("outfitx.optimizer"):
+        scale = 1.0 / n
+        for p in state.optimizer.params:
+            if p.grad is not None:
+                p.grad.mul_(scale)
+        if state.par is not None:
+            state.par.reduce_gradients(state.optimizer.params)
+            total = state.par.all_reduce(total.reshape(1).clone(), DATA_AXIS)[0]
+        loss = total * scale
+        state.optimizer.step()
     state.step += 1
+    return loss
 
 
 def cp_train_step(
@@ -105,10 +117,11 @@ def cp_train_step(
         loss = _focal(scores, mb["label"], par, alpha=alpha, gamma=gamma)
         return loss, scores.detach()
 
-    loss, scores = _accumulate(state, loss_fn, _split(batch))
-    _apply(state)
-    labels = batch["label"] if par is None else par.rows(batch["label"], dim=1)
-    return {"loss": loss, "scores": torch.stack(scores), "labels": labels}
+    with span("outfitx.step", state.step):
+        loss, scores = _accumulate(state, loss_fn, _split(batch))
+        loss = _apply(state, loss, len(scores))
+        labels = batch["label"] if par is None else par.rows(batch["label"], dim=1)
+        return {"loss": loss, "scores": torch.stack(scores), "labels": labels}
 
 
 def cir_train_step(
@@ -147,9 +160,9 @@ def cir_train_step(
         )
         return loss, None
 
-    loss, _ = _accumulate(state, loss_fn, _split(batch))
-    _apply(state)
-    return {"loss": loss}
+    with span("outfitx.step", state.step):
+        loss, aux = _accumulate(state, loss_fn, _split(batch))
+        return {"loss": _apply(state, loss, len(aux))}
 
 
 def original_cp_train_step(
@@ -173,9 +186,10 @@ def original_cp_train_step(
         loss = _focal(scores, mb["label"], par, alpha=alpha, gamma=gamma)
         return loss, scores.detach()
 
-    loss, scores = _accumulate(state, loss_fn, microbatches)
-    _apply(state)
-    return {"loss": loss, "scores": torch.stack(scores)}
+    with span("outfitx.step", state.step):
+        loss, scores = _accumulate(state, loss_fn, microbatches)
+        loss = _apply(state, loss, len(scores))
+        return {"loss": loss, "scores": torch.stack(scores)}
 
 
 @torch.no_grad()
