@@ -67,8 +67,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", default=None, help="checkpoint tag/path to resume from")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of epoch 1, with the spans "
-                   "outfitx.step, .forward, .backward, .optimizer (and for "
-                   "original-CP .stage, .gather, .encode) over its kernels, and "
+                   "outfitx.step, .forward, .ahead, .backward, .optimizer (and "
+                   "for original-CP .stage, .gather, .encode) over its kernels, and "
                    "log each span's calls, host ms and device ms")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint each encoder layer: keep its input and recompute "

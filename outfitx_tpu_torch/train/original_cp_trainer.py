@@ -13,9 +13,11 @@ ResNet-18's first convolution alone is 9 GB in bfloat16).
 The host gathers one microbatch of raw items at a time, from the epoch's
 order (the JAX trainer's ``_batches``, which gathers a whole optimizer step,
 8.4 GB at the envelope), into one of two pinned buffers, and copies it to
-the card without blocking: the gather of the next microbatch overlaps the
-card's work on this one. Dropout draws from the trainer's generator, a
-fresh stream for each step and microbatch.
+the card without blocking. The train step takes microbatch i+1 after it has
+queued microbatch i's forward and before it queues i's backward
+(``steps._accumulate``), so the gather of i+1 overlaps the card's forward
+of i; only each step's first gather finds the card idle. Dropout draws from
+the trainer's generator, a fresh stream for each step and microbatch.
 
 Checkpoints hold the JAX trainer's tree, ``{"model": ..., "enc_heads":
 {"fc", "proj"}}``, so either package restores the other's.
@@ -131,8 +133,12 @@ class RawBatchStager:
 
     On the card each gather lands in one of two pinned buffers, taken in
     turn, and is copied without blocking; before a buffer is filled again
-    the host waits for its last copy. The small per-outfit arrays (mask,
-    label) go through pinned memory too. ``gather_s`` counts the host's
+    the host waits for its last copy. The gather overlaps the card's work
+    only where the caller asks for the next microbatch before the card has
+    run out of queued work: the train step asks for microbatch i+1 right
+    after queueing forward i, whose buffer last held microbatch i-1, copied
+    before forward i ran. The small per-outfit arrays (mask, label) go
+    through pinned memory too. ``gather_s`` counts the host's
     seconds in the gathers, waits included: the stretch of each
     ``outfitx.gather`` span, inside the call's ``outfitx.stage`` span."""
 

@@ -9,9 +9,11 @@ the losses and gradients, scales both by 1/A (as the JAX package's
 ``_accumulate``), then clips and takes one AdamW step. Each microbatch draws
 its dropout masks from a fresh stream for (step, microbatch). The
 original-CP step takes its microbatches one at a time instead, raw items
-that its model encodes before the set transformer. Spans
+that its model encodes before the set transformer. Every step takes
+microbatch i+1 after queueing forward i and before backward i. Spans
 (``core/trace.py``, recorded only under a profiler) mark each step, each
-microbatch's forward and backward, and the optimizer's part.
+microbatch's forward and backward, each take ahead, and the optimizer's
+part.
 
 Under a mesh (``state.par``) each rank takes its rows of every global
 microbatch (block d of ``data``, JAX's ``P("data")`` split) and its loss
@@ -48,20 +50,29 @@ def gather(catalog: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 def _accumulate(state: TrainState, loss_fn, microbatches: Iterable[Batch]):
     """Forward and backward over ``microbatches``; leaves the summed
     gradient in each ``p.grad`` and returns (summed loss, per-microbatch
-    aux outputs). Each microbatch is taken from ``microbatches`` outside
-    its forward span."""
+    aux outputs). Microbatch i+1 is taken one ahead, in an
+    ``outfitx.ahead`` span between forward i and backward i: where taking
+    it gathers raw items on the host (original-CP), the gather runs while
+    the card works through forward i. The take after the last forward
+    finds the end."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
     total = None
     aux = []
-    for i, mb in enumerate(microbatches):
+    batches = iter(microbatches)
+    mb = next(batches, None)
+    i = 0
+    while mb is not None:
         with span("outfitx.forward", i):
             loss, out = loss_fn(model, mb, state.dropout_generator(i))
+        with span("outfitx.ahead", i + 1):
+            mb = next(batches, None)
         with span("outfitx.backward", i):
             loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
         aux.append(out)
+        i += 1
     return total, aux
 
 

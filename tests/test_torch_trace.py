@@ -3,14 +3,16 @@
 With no profiler recording, a CP, CIR and original-CP train step record
 nothing. Under ``torch.profiler`` (CPU activity), A = 2: each step records
 one ``outfitx.step`` tagged with its step number, a forward and a backward
-for each microbatch tagged 0 and 1, and one optimizer, under the step;
-original-CP adds a ``stage`` for each microbatch under the step, each
-around one ``gather``, and an ``encode`` inside each forward. The
-profiler's own events carry the same names, nested alike. The buffer keeps
-the newest records and counts the dropped. The benchmark's six readers of
-the spans do their arithmetic on synthetic records. One test needs the
-card: a span's device seconds read the card's idle inside it, and about 0
-behind a queued kernel longer than the span.
+for each microbatch tagged 0 and 1, an ``ahead`` between each forward and
+its backward tagged 1 and 2 (the microbatch it takes; the second finds the
+end), and one optimizer, all under the step; original-CP adds a ``stage``
+for each microbatch, the first under the step and the second under the
+``ahead`` tagged 1, each around one ``gather``, and an ``encode`` inside
+each forward. The profiler's own events carry the same names, nested
+alike. The buffer keeps the newest records and counts the dropped. The
+benchmark's six readers of the spans do their arithmetic on synthetic
+records. One test needs the card: a span's device seconds read the card's
+idle inside it, and about 0 behind a queued kernel longer than the span.
 """
 
 import collections
@@ -129,7 +131,8 @@ def test_on_under_a_profiler(steps, task):
     named = collections.defaultdict(list)
     for r in recs:
         named[r.name].append(r)
-    want = {"outfitx.step": 1, "outfitx.forward": 2, "outfitx.backward": 2, "outfitx.optimizer": 1}
+    want = {"outfitx.step": 1, "outfitx.forward": 2, "outfitx.ahead": 2, "outfitx.backward": 2,
+            "outfitx.optimizer": 1}
     if task == "original_cp":
         want.update({"outfitx.stage": 2, "outfitx.gather": 2, "outfitx.encode": 2})
     assert {k: len(v) for k, v in named.items()} == want
@@ -138,6 +141,10 @@ def test_on_under_a_profiler(steps, task):
     assert st.tag == number and st.parent is None
     for name in ("outfitx.forward", "outfitx.backward"):
         assert [r.tag for r in named[name]] == [0, 1]
+    assert [r.tag for r in named["outfitx.ahead"]] == [1, 2]
+    for fwd, ahead, bwd in zip(*(named[n] for n in
+                                 ("outfitx.forward", "outfitx.ahead", "outfitx.backward"))):
+        assert fwd.host_end <= ahead.host_start <= ahead.host_end <= bwd.host_start
     parent = {r.name: set() for r in recs}
     for r in recs:
         parent[r.name].add(by_id[r.parent].name if r.parent is not None else None)
@@ -146,9 +153,11 @@ def test_on_under_a_profiler(steps, task):
             outer = by_id[r.parent]
             assert outer.host_start <= r.host_start and r.host_end <= outer.host_end
     assert parent["outfitx.forward"] == parent["outfitx.backward"] == {"outfitx.step"}
-    assert parent["outfitx.optimizer"] == {"outfitx.step"}
+    assert parent["outfitx.ahead"] == parent["outfitx.optimizer"] == {"outfitx.step"}
     if task == "original_cp":
-        assert parent["outfitx.stage"] == {"outfitx.step"}
+        first, second = named["outfitx.stage"]
+        assert first.parent == st.id and second.parent == named["outfitx.ahead"][0].id
+        assert not any(r.parent == named["outfitx.ahead"][1].id for r in recs)
         assert parent["outfitx.gather"] == {"outfitx.stage"}
         assert sorted(r.parent for r in named["outfitx.gather"]) == sorted(
             r.id for r in named["outfitx.stage"])
@@ -200,7 +209,8 @@ def test_profiled_epoch_logs_each_span(tmp_path, monkeypatch):
             assert rest.endswith("device - ms")
     steps = len(data.cp_train) // 16
     assert calls == {"outfitx.step": steps, "outfitx.forward": 2 * steps,
-                     "outfitx.backward": 2 * steps, "outfitx.optimizer": steps}
+                     "outfitx.ahead": 2 * steps, "outfitx.backward": 2 * steps,
+                     "outfitx.optimizer": steps}
 
 
 def test_totals_by_name():
