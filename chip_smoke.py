@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port (``outfitx_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only dsv2   # env, build and the dsv2 phase alone
 
+Each phase's seconds print at the end (``phase_seconds``).
 Phases, each printing one JSON line:
 1. env      torch and CUDA versions, the card's name and power limit;
 2. build    compile every CUDA kernel (forward and backward attention, the
@@ -787,6 +789,115 @@ def _dynamic_smem():
                 lib.masked_mha_bwd_smem_bytes(dh, slots)
             )
     return out
+
+
+# ---------------------------------------------------------------- dsv2 --
+# DeepSeek-V2-Lite's text tower in original-CP (B=64 outfits x 16 items, T =
+# 16): MLA's forward on masked_mha's split route and the mixture's grouped
+# expert products, at the tower's widths.
+DSV2_MLA_SHAPE = (1024, 16, 16, 192, 128)
+DSV2_SPLIT_SHAPES = [DSV2_MLA_SHAPE, (7, 3, 1, 24, 16), (33, 4, 17, 40, 24),
+                     (64, 2, 64, 256, 128), (16, 16, 64, 192, 128)]
+DSV2_TOKENS, DSV2_D, DSV2_F, DSV2_E, DSV2_K = 16384, 2048, 1408, 64, 6
+
+
+def _split_inputs(shape, dtype, seed):
+    b, h, l, dqk, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn((b, h, l, dqk), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, h, l, dv), generator=gen, device="cuda").to(dtype)
+    lengths = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= lengths[:, None]
+    return q, k, v, pad
+
+
+def _grouped_inputs(seed):
+    """A mixture's pairs sorted by expert from a router over random tokens:
+    x (N k, d), the stacked gate_up and down weights, the groups' ends."""
+    from outfitx_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((DSV2_TOKENS, DSV2_D), generator=gen, device="cuda").to(torch.bfloat16)
+    router = torch.randn((DSV2_E, DSV2_D), generator=gen, device="cuda") * 0.02
+    gate_up, down = (
+        (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        for shape in ((DSV2_E, 2 * DSV2_F, DSV2_D), (DSV2_E, DSV2_D, DSV2_F))
+    )
+    _, idx = moe.route(x, router, DSV2_K)
+    order, counts, ends = moe.permute(idx, DSV2_E)
+    return x[order // DSV2_K].contiguous(), gate_up, down, ends, counts
+
+
+def phase_dsv2():
+    """masked_mha's split route against mha_reference at MLA's shape and
+    others (ragged L, L = 1 and 64, Dqk up to 256), bfloat16 and float32,
+    causal and not; the grouped expert products against the per-expert
+    loop; then each at the tower's shape timed beside its bound, its plain
+    version and SDPA."""
+    import torch.nn.functional as F
+
+    from outfitx_tpu_torch.ops import moe
+    from outfitx_tpu_torch.ops.attention import masked_mha, mha_reference
+
+    cases = []
+    for si, shape in enumerate(DSV2_SPLIT_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q, k, v, pad = _split_inputs(shape, dtype, 70 + si)
+                scale = 0.1147 if shape == DSV2_MLA_SHAPE else 1.0 / math.sqrt(shape[3])
+                got = masked_mha(q, k, v, pad, causal, scale=scale)
+                ref = mha_reference(q, k, v, pad, causal, scale)
+                torch.cuda.synchronize()
+                tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": causal}
+                check(bool(torch.isfinite(got.float()).all()), f"non-finite split output at {tag}")
+                err, ok = _compare(got, ref, dtype)
+                cases.append({**tag, "max_abs_err": err, "ok": ok})
+                check(ok, f"masked_mha split route disagrees with its plain version: {cases[-1]}")
+    xs, gate_up, down, ends, counts = _grouped_inputs(80)
+    grouped = []
+    for name, a, w in (("gate_up", xs, gate_up), ("down", xs[:, :DSV2_F].contiguous(), down)):
+        got = moe.grouped_mm(a, w, ends)
+        ref = moe.grouped_mm_reference(a, w, ends)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        ok = bool(((got.float() - ref.float()).abs()
+                   <= BF16_REL * ref.float().abs().clamp_min(1.0)).all())
+        grouped.append({"projection": name, "shape": [a.shape[0], a.shape[1], w.shape[1]],
+                        "max_abs_err": err, "ok": ok})
+        check(ok, f"grouped_mm disagrees with the per-expert loop: {grouped[-1]}")
+
+    b, h, l, dqk, dv = DSV2_MLA_SHAPE
+    q, k, v, pad = _split_inputs(DSV2_MLA_SHAPE, torch.bfloat16, 90)
+    nbytes = b * h * l * (2 * dqk + 2 * dv) * 2 + b * l
+    ops = 2 * b * h * l * l * (dqk + dv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    keep = (~pad)[:, None, None, :] & torch.ones(l, l, dtype=torch.bool, device="cuda").tril()
+    mla = {
+        "shape": list(DSV2_MLA_SHAPE),
+        "ms": cuda_ms(lambda: masked_mha(q, k, v, pad, True, scale=0.1147), 50),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad, True, 0.1147), 3, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, scale=0.1147), 50),
+    }
+    flops_gu = 2.0 * xs.shape[0] * DSV2_D * 2 * DSV2_F
+    flops_dn = 2.0 * xs.shape[0] * DSV2_F * DSV2_D
+    a_dn = xs[:, :DSV2_F].contiguous()
+    expert_ms = cuda_ms(lambda: (moe.grouped_mm(xs, gate_up, ends), moe.grouped_mm(a_dn, down, ends)),
+                        20)
+    plain_ms = cuda_ms(lambda: (moe.grouped_mm_reference(xs, gate_up, ends),
+                                moe.grouped_mm_reference(a_dn, down, ends)), 3, warmup=1)
+    experts = {
+        "pairs": int(xs.shape[0]), "experts": DSV2_E,
+        "tokens_per_expert_min_max": [int(counts.min()), int(counts.max())],
+        "ms": expert_ms, "bound_ms": (flops_gu + flops_dn) / PEAK_FLOPS[torch.bfloat16] * 1e3,
+        "bound_by": "operations", "plain_ms": plain_ms,
+        "launches": moe.grouped_mm.launches,
+    }
+    emit({"phase": "dsv2", "masked_mha_fwd_split": cases, "grouped_mm": grouped,
+          "timing": {"masked_mha_fwd_split": mla, "grouped_mm": experts},
+          "nvidia_smi": nvidia_smi_line()})
 
 
 def phase_build():
@@ -4330,19 +4441,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     started = time.perf_counter()
-    smi = phase_env()
-    phase_build()
-    max_err = phase_kernels()
-    engine, q8_engine, serve_launches = phase_serve()
-    train_launches = phase_train()
-    precompute_launches = phase_precompute()
-    http_launches = phase_http()
-    phase_retrieval()
-    ocp_launches = phase_original_cp()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env)
+    timed("build", phase_build)
+    if sys.argv[1:3] == ["--only", "dsv2"]:
+        timed("dsv2", phase_dsv2)
+        emit({"phase_seconds": seconds, "total": time.perf_counter() - started})
+        return 0
+    max_err = timed("kernels", phase_kernels)
+    engine, q8_engine, serve_launches = timed("serve", phase_serve)
+    train_launches = timed("train", phase_train)
+    precompute_launches = timed("precompute", phase_precompute)
+    http_launches = timed("http", phase_http)
+    timed("retrieval", phase_retrieval)
+    ocp_launches = timed("original_cp", phase_original_cp)
     torch.cuda.empty_cache()  # the CLI's child processes share the card
-    cli_launches = phase_cli()
-    parallel_launches = phase_parallel()
-    fwd, bwd, towers, layernorm, host = phase_timing(engine, q8_engine)
+    cli_launches = timed("cli", phase_cli)
+    parallel_launches = timed("parallel", phase_parallel)
+    timed("dsv2", phase_dsv2)
+    fwd, bwd, towers, layernorm, host = timed("timing", phase_timing, engine, q8_engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
             "at_b3072": fwd[TRAIN_B], "at_b4096": fwd[4096],
@@ -4387,7 +4511,8 @@ def main() -> int:
         check(all(counts.get(name, 0) > 0 for path, counts in by_path.items()
                   if name in counts) and any(name in c for c in by_path.values()),
               f"{name} was not launched on a main path that runs it")
-    emit({"phase": "total", "seconds": time.perf_counter() - started})
+    emit({"phase": "total", "seconds": time.perf_counter() - started,
+          "phase_seconds": seconds})
     emit({"kernels": [
         {
             "name": name,

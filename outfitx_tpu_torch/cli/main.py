@@ -63,7 +63,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-dir", default=None, help="metrics/log output dir")
     p.add_argument("--mesh-data", type=int, default=-1)
     p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--encoder", choices=["siglip", "clip", "resnet_sbert"], default="siglip")
+    p.add_argument("--encoder", choices=["siglip", "clip", "resnet_sbert", "resnet_dsv2lite"],
+                   default="siglip",
+                   help="the item encoder's tower pair; original-cp takes resnet_sbert "
+                   "(its default) or resnet_dsv2lite")
     p.add_argument("--resume", default=None, help="checkpoint tag/path to resume from")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of epoch 1, with the spans "
@@ -185,11 +188,12 @@ def cmd_fitb(args, parser) -> int:
 
 
 def cmd_original_cp(args, parser) -> int:
-    """End-to-end CP, ResNet-18 and MiniLM inside the train step."""
-    from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel
+    """End-to-end CP, ResNet-18 and MiniLM (or DeepSeek-V2-Lite with
+    ``--encoder resnet_dsv2lite``) inside the train step."""
+    from outfitx_tpu_torch.models.item_encoder import HEADED, ItemEncoderModel
     from outfitx_tpu_torch.train.original_cp_trainer import OriginalCPTrainer, RawItemSource
 
-    enc_cfg = ItemEncoderConfig.for_type("resnet_sbert")
+    enc_cfg = ItemEncoderConfig.for_type(args.encoder if args.encoder in HEADED else "resnet_sbert")
     model_cfg = OutfitXConfig(item_encoder=enc_cfg)
     cfg = _build_cfg(CPTrainConfig, args)
     if args.batch_size is None:  # the reference's original-CP envelope

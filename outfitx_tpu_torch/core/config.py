@@ -20,9 +20,10 @@ REMAT_POLICIES = ("full", "masks", "dots")
 @dataclasses.dataclass(frozen=True)
 class ItemEncoderConfig:
     """Cross-modal item encoder: ``encoder_type`` names the frozen tower
-    pair ('clip' 512/modality, 'resnet_sbert' 64, 'siglip' 768)."""
+    pair ('clip' 512/modality, 'resnet_sbert' 64, 'resnet_dsv2lite' 64,
+    'siglip' 768)."""
 
-    encoder_type: str = "siglip"  # {'clip', 'resnet_sbert', 'siglip'}
+    encoder_type: str = "siglip"  # {'clip', 'resnet_sbert', 'resnet_dsv2lite', 'siglip'}
     aggregation: str = "concat"  # {'concat', 'mean', 'sum'}
     normalize_out: bool = True  # L2-normalize each modality's embedding
     dim_per_modality: int = 768  # 512 clip / 64 resnet_sbert / 768 siglip
@@ -39,13 +40,14 @@ class ItemEncoderConfig:
 
     @classmethod
     def for_type(cls, encoder_type: str) -> "ItemEncoderConfig":
-        dims = {"clip": 512, "resnet_sbert": 64, "siglip": 768}
+        dims = {"clip": 512, "resnet_sbert": 64, "resnet_dsv2lite": 64, "siglip": 768}
         names = {
             "clip": ("patrickjohncyh/fashion-clip",) * 2,
             "resnet_sbert": (
                 "resnet18",
                 "sentence-transformers/all-MiniLM-L6-v2",
             ),
+            "resnet_dsv2lite": ("resnet18", "deepseek-ai/DeepSeek-V2-Lite"),
             "siglip": ("Marqo/marqo-fashionSigLIP",) * 2,
         }
         img, txt = names[encoder_type]

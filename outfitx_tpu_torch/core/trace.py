@@ -25,6 +25,11 @@ span
 Nothing on the hot path waits for the card: ``records()`` synchronises
 once and resolves the events then. The newest ``CAPACITY`` records are
 kept in memory; older ones are dropped and counted.
+
+``count(name, values, tag=None)`` keeps a counter's values, a tensor left
+where it lies (on the card: no copy to the host, no wait), under the same
+switch: with no profiler recording it is one check of the flag.
+``counters()`` brings the kept values to the host, once.
 """
 
 from __future__ import annotations
@@ -43,6 +48,13 @@ CAPACITY = 65536
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class Count:
+    name: str
+    tag: object
+    values: object  # a tensor until counters() resolves it, then a host list
 
 
 @dataclasses.dataclass
@@ -70,12 +82,27 @@ class Tracer:
         self._pending: Dict[int, Tuple[torch.cuda.Event, torch.cuda.Event]] = {}
         self._ids = itertools.count(1)
         self._local = threading.local()
+        self._counts: collections.deque = collections.deque(maxlen=capacity)
         self.dropped = 0
 
     def span(self, name: str, tag=None):
         if not _profiler_enabled():
             return _OFF
         return _Span(self, name, tag)
+
+    def count(self, name: str, values: torch.Tensor, tag=None) -> None:
+        if _profiler_enabled():
+            with self._lock:
+                self._counts.append(Count(name, tag, values.detach()))
+
+    def counters(self) -> List[Count]:
+        """The kept counts, oldest first, their values on the host."""
+        with self._lock:
+            kept = list(self._counts)
+        for c in kept:
+            if isinstance(c.values, torch.Tensor):
+                c.values = c.values.tolist()
+        return kept
 
     def _stack(self) -> List[int]:
         stack = getattr(self._local, "stack", None)
@@ -109,6 +136,7 @@ class Tracer:
         with self._lock:
             self._done.clear()
             self._pending.clear()
+            self._counts.clear()
             self.dropped = 0
 
 
@@ -156,6 +184,16 @@ def span(name: str, tag=None):
 
 def records() -> List[Record]:
     return TRACER.records()
+
+
+def count(name: str, values: torch.Tensor, tag=None) -> None:
+    """Keep ``values`` (a tag: a layer index) on the process's tracer;
+    only while a profiler records."""
+    TRACER.count(name, values, tag)
+
+
+def counters() -> List[Count]:
+    return TRACER.counters()
 
 
 def clear() -> None:

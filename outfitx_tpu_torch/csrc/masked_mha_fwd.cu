@@ -80,6 +80,11 @@
 // L = 64 tiles the queries, 32 rows at a time, with every key and value of
 // the (b, h) in shared memory and the products as bg::block_gemm's scalar
 // FMAs (block_gemm.cuh).
+//
+// Queries and keys of another width than the values (DeepSeek-V2's latent
+// attention, Dqk 192 / Dv 128) take a C entry of their own,
+// masked_mha_fwd_split, with the scale given: the scalar design with the
+// widths apart (masked_mha_fwd_split_kernel). No other shape reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -257,6 +262,137 @@ cudaError_t launch_short(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
       static_cast<T*>(out), H, L, Dh, softmax_scale(Dh), causal);
+  return cudaGetLastError();
+}
+
+// ---- the split route: Dqk != Dv, L <= 64 (DeepSeek-V2's latent attention) ---
+//
+// Replaces no TPU kernel: the JAX package's attention has one head width.
+// DeepSeek-V2's MLA attends with queries and keys of Dqk = 192 (128 from the
+// latent, 64 rotary) and values of Dv = 128, at the text tower's L = 16,
+// causal with key padding, scaled by softmax_scale * mscale^2 (the caller's
+// `scale`). Bytes bound it: at (1024, 16, 16, 192 / 128) q, k, v and out
+// are 335 MB, 0.10 ms at 3.35 TB/s, against 2.7 GFLOP. The design is the
+// scalar kernel's above, one block of 128 threads a (b, h), with the
+// widths apart: Q and K widened to float32 in shared memory at rows of
+// Dqk + 1 floats, V at Dv; S summed in order over d (the plain version's
+// _scores order), the same where-set masks, the same warp softmax with P
+// rounded to the input dtype, and P V as scalar FMAs writing 16 bytes a
+// thread. The kernel's name starts with masked_mha_fwd, so a device trace
+// counts it among the attention forward's launches.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    masked_mha_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const uint8_t* __restrict__ pad,
+                                T* __restrict__ out, int H, int L, int Dqk,
+                                int Dv, float scale, int causal) {
+  extern __shared__ float4 smem4[];
+  const int qk_stride = Dqk + 1;
+  float* sv = reinterpret_cast<float*>(smem4);  // (L, Dv), 16-byte aligned
+  float* sq = sv + L * Dv;                      // (L, Dqk + 1)
+  float* sk = sq + L * qk_stride;               // (L, Dqk + 1)
+  float* sp = sk + L * qk_stride;               // (L, L) scores, then P
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const size_t base_qk = static_cast<size_t>(bh) * L * Dqk;
+  const size_t base_v = static_cast<size_t>(bh) * L * Dv;
+  const uint8_t* prow = pad + static_cast<size_t>(b) * L;
+
+  load_slab(q + base_qk, sq, L, Dqk, qk_stride);
+  load_slab(k + base_qk, sk, L, Dqk, qk_stride);
+  load_slab(v + base_v, sv, L, Dv, Dv);
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < L * L; e += kThreads) {
+    const int i = e / L;
+    const int j = e - i * L;
+    const float* qi = sq + i * qk_stride;
+    const float* kj = sk + j * qk_stride;
+    float s = 0.f;
+    for (int d = 0; d < Dqk; ++d) s = fmaf(qi[d], kj[d], s);
+    s *= scale;
+    if (prow[j]) s = kNeg;
+    if (causal && j > i) s = kNeg;
+    sp[e] = s;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < L; i += kWarps) {
+    float* row = sp + i * L;
+    const bool has0 = lane < L;
+    const bool has1 = lane + 32 < L;
+    const float s0 = has0 ? row[lane] : -INFINITY;
+    const float s1 = has1 ? row[lane + 32] : -INFINITY;
+    float m = fmaxf(s0, s1);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float e0 = has0 ? expf(s0 - m) : 0.f;
+    const float e1 = has1 ? expf(s1 - m) : 0.f;
+    float sum = e0 + e1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (has0) row[lane] = to_f32(from_f32<T>(e0 / sum));
+    if (has1) row[lane + 32] = to_f32(from_f32<T>(e1 / sum));
+  }
+  __syncthreads();
+
+  const int groups = Dv / kOutVec;
+  for (int e = threadIdx.x; e < L * groups; e += kThreads) {
+    const int i = e / groups;
+    const int d0 = (e - i * groups) * kOutVec;
+    float acc[kOutVec];
+#pragma unroll
+    for (int t = 0; t < kOutVec; ++t) acc[t] = 0.f;
+    const float* pi = sp + i * L;
+    for (int j = 0; j < L; ++j) {
+      const float p = pi[j];
+      const float4* vj = reinterpret_cast<const float4*>(sv + j * Dv + d0);
+      const float4 lo = vj[0];
+      const float4 hi = vj[1];
+      acc[0] = fmaf(p, lo.x, acc[0]);
+      acc[1] = fmaf(p, lo.y, acc[1]);
+      acc[2] = fmaf(p, lo.z, acc[2]);
+      acc[3] = fmaf(p, lo.w, acc[3]);
+      acc[4] = fmaf(p, hi.x, acc[4]);
+      acc[5] = fmaf(p, hi.y, acc[5]);
+      acc[6] = fmaf(p, hi.z, acc[6]);
+      acc[7] = fmaf(p, hi.w, acc[7]);
+    }
+    alignas(16) T res[kOutVec];
+#pragma unroll
+    for (int t = 0; t < kOutVec; ++t) res[t] = from_f32<T>(acc[t]);
+    uint4* dst = reinterpret_cast<uint4*>(out + base_v + i * Dv + d0);
+    const uint4* src = reinterpret_cast<const uint4*>(res);
+#pragma unroll
+    for (int w = 0; w < static_cast<int>(kOutVec * sizeof(T) / 16); ++w)
+      dst[w] = src[w];
+  }
+}
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         const void* pad, void* out, int B, int H, int L,
+                         int Dqk, int Dv, float scale, int causal,
+                         cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(L) * Dv +
+                       2 * static_cast<size_t>(L) * (Dqk + 1) +
+                       static_cast<size_t>(L) * L) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        masked_mha_fwd_split_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  masked_mha_fwd_split_kernel<T><<<B * H, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
+      static_cast<T*>(out), H, L, Dqk, Dv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -991,4 +1127,21 @@ extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                ? launch_short<float>(q, k, v, pad, out, B, H, L, Dh, causal, s)
                : launch_short<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dh, causal, s);
   return launch_long_f32(q, k, v, pad, out, B, H, L, Dh, causal, s);
+}
+
+// C entry of the split route: q, k (B, H, L, Dqk), v and out (B, H, L, Dv),
+// Dqk != Dv, both multiples of 8, Dqk <= 256, Dv <= 128, L <= 64; `scale`
+// multiplies S. dtype as above. Returns the launch's cudaError_t.
+extern "C" int masked_mha_fwd_split(const void* q, const void* k, const void* v,
+                                    const void* pad, void* out, int B, int H,
+                                    int L, int Dqk, int Dv, float scale,
+                                    int causal, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || L < 1 || L > 64 || Dqk < 8 || Dqk > 256 || Dqk % 8 ||
+      Dv < 8 || Dv > 128 || Dv % 8 || Dqk == Dv || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dtype == 0 ? launch_split<float>(q, k, v, pad, out, B, H, L, Dqk, Dv, scale, causal, s)
+                 : launch_split<__nv_bfloat16>(q, k, v, pad, out, B, H, L, Dqk, Dv, scale,
+                                               causal, s));
 }

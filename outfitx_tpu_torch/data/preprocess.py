@@ -23,6 +23,7 @@ STATS = {
     "clip": (CLIP_MEAN, CLIP_STD),
     "siglip": (SIGLIP_MEAN, SIGLIP_STD),
     "resnet_sbert": (IMAGENET_MEAN, IMAGENET_STD),
+    "resnet_dsv2lite": (IMAGENET_MEAN, IMAGENET_STD),
 }
 
 

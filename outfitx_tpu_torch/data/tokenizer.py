@@ -48,9 +48,16 @@ class HashTokenizer:
         return ids, mask
 
 
-def load_tokenizer(model_name_or_path: Optional[str], vocab_size: int = 49408):
+# The files an HF tokenizer is loaded from; a tower whose ids must be the
+# published ones (``required``) names them when they are missing.
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json")
+
+
+def load_tokenizer(model_name_or_path: Optional[str], vocab_size: int = 49408,
+                   required: bool = False):
     """The HF tokenizer if its files are on the local disk, else a
-    ``HashTokenizer``. Nothing is downloaded."""
+    ``HashTokenizer``; with ``required``, FileNotFoundError naming the
+    files instead of the stand-in. Nothing is downloaded."""
     if model_name_or_path:
         try:
             from transformers import AutoTokenizer
@@ -59,6 +66,14 @@ def load_tokenizer(model_name_or_path: Optional[str], vocab_size: int = 49408):
                 model_name_or_path, local_files_only=True
             )
         except Exception as e:  # no transformers, or no local files
+            if required:
+                raise FileNotFoundError(
+                    f"the tokenizer of {model_name_or_path} is not on this disk: "
+                    f"{' and '.join(TOKENIZER_FILES)} under {model_name_or_path} "
+                    f"(or the HF cache), with transformers installed ({e}). Its "
+                    "token ids index the tower's embedding; a hash tokenizer's "
+                    "would not."
+                ) from e
             logger.warning(
                 "tokenizer '%s' is not available locally (%s); using the "
                 "HashTokenizer, which shares no vocabulary with pretrained "

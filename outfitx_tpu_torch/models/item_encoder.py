@@ -6,8 +6,12 @@ The port of ``outfitx_tpu/models/item_encoder.py``: the tower pair named by
 L2-normalised, and the two are aggregated (concat, mean or sum). The towers
 are frozen: CLIP and SigLIP take no gradient at all, and ``resnet_sbert``
 only in its two fresh heads, ResNet's ``fc`` and MiniLM's ``proj`` (the JAX
-encoder's ``has_trainable_heads``). Outputs are float32; with concat fusion
-the text half is ``emb[d // 2:]``, which the datasets rely on.
+encoder's ``has_trainable_heads``). ``resnet_dsv2lite`` (no JAX
+counterpart) puts DeepSeek-V2-Lite in MiniLM's place
+(``towers/deepseek_v2.py``), its bfloat16 weights made and drawn on the
+encoder's device, with the same two fresh heads. Outputs are float32;
+with concat fusion the text half is ``emb[d // 2:]``, which the datasets
+rely on.
 """
 
 from __future__ import annotations
@@ -27,12 +31,16 @@ from outfitx_tpu_torch.models.towers import (
     VisionTowerConfig,
 )
 from outfitx_tpu_torch.models.towers.common import ATTN_ROUTES, MLP_ROUTES
+from outfitx_tpu_torch.models.towers.deepseek_v2 import DeepseekV2, DeepseekV2Config
 from outfitx_tpu_torch.models.towers.minilm import MiniLM, MiniLMConfig
 from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
 from outfitx_tpu_torch.utils import aggregate_embeddings
 
-# The fresh heads of resnet_sbert, the only parameters that take a gradient.
+# The fresh heads of resnet_sbert and resnet_dsv2lite, the only parameters
+# that take a gradient.
 TRAINABLE_HEADS = ("vision.fc.", "text.proj.")
+# The pairs with trainable heads: ResNet-18 and a text tower of their own.
+HEADED = ("resnet_sbert", "resnet_dsv2lite")
 
 
 def tower_configs(cfg: ItemEncoderConfig):
@@ -45,6 +53,11 @@ def tower_configs(cfg: ItemEncoderConfig):
             ResNet18Config(d_out=cfg.dim_per_modality),
             MiniLMConfig(d_out=cfg.dim_per_modality),
         )
+    if cfg.encoder_type == "resnet_dsv2lite":
+        return (
+            ResNet18Config(d_out=cfg.dim_per_modality),
+            DeepseekV2Config(d_out=cfg.dim_per_modality),
+        )
     raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} has no towers")
 
 
@@ -53,15 +66,18 @@ class ItemEncoderModel(nn.Module):
     distributions (not their numbers), until a state dict is loaded (see
     ``models/from_jax.py item_encoder_state_dict_from_jax`` and
     ``models/pretrained.py``). ``attn`` and ``mlp`` choose the CLIP and
-    SigLIP towers' formulations (``towers/common.py``); ResNet-18 and MiniLM
-    have one formulation each and take neither."""
+    SigLIP towers' formulations (``towers/common.py``); ResNet-18, MiniLM
+    and DeepSeek-V2 have one formulation each and take neither.
+    DeepSeek-V2 is made on ``device`` and drawn there from a generator on
+    that device seeded with ``seed``; the other towers are drawn on the
+    host and moved."""
 
     def __init__(
         self,
         cfg: Optional[ItemEncoderConfig] = None,
         *,
         vision_cfg: Optional[VisionTowerConfig | ResNet18Config] = None,
-        text_cfg: Optional[TextTowerConfig | MiniLMConfig] = None,
+        text_cfg: Optional[TextTowerConfig | MiniLMConfig | DeepseekV2Config] = None,
         device: str | torch.device = "cuda",
         seed: int = 0,
         attn: str = "mha",
@@ -84,18 +100,24 @@ class ItemEncoderModel(nn.Module):
                 )
         if cfg.aggregation not in ("concat", "mean", "sum"):
             raise ValueError(f"aggregation {cfg.aggregation!r}")
-        if cfg.encoder_type == "resnet_sbert":
+        if cfg.encoder_type in HEADED:
             if attn not in ATTN_ROUTES or mlp not in MLP_ROUTES:
                 raise ValueError(f"unknown tower route attn={attn!r}, mlp={mlp!r}")
             self.vision = ResNet18(vc)
-            self.text = MiniLM(tc)
+            if cfg.encoder_type == "resnet_dsv2lite":
+                self.text = DeepseekV2(tc, device=dev)
+            else:
+                self.text = MiniLM(tc)
         else:
             self.vision = VisionTower(vc, attn=attn, mlp=mlp)
             self.text = TextTower(tc, attn=attn, mlp=mlp)
         self.normalize_images = make_normalizer(cfg.encoder_type)
         gen = torch.Generator().manual_seed(seed)
         self.vision.init_weights_(gen)
-        self.text.init_weights_(gen)
+        if isinstance(self.text, DeepseekV2):
+            self.text.init_weights_(torch.Generator(device=dev).manual_seed(seed))
+        else:
+            self.text.init_weights_(gen)
         self.to(dev)
         for name, p in self.named_parameters():
             p.requires_grad_(self.has_trainable_heads and name.startswith(TRAINABLE_HEADS))
@@ -103,13 +125,13 @@ class ItemEncoderModel(nn.Module):
 
     @property
     def has_trainable_heads(self) -> bool:
-        """resnet_sbert trains its fresh heads; CLIP and SigLIP are wholly
-        frozen."""
-        return self.cfg.encoder_type == "resnet_sbert"
+        """resnet_sbert and resnet_dsv2lite train their fresh heads; CLIP and
+        SigLIP are wholly frozen."""
+        return self.cfg.encoder_type in HEADED
 
     @property
     def device(self) -> torch.device:
-        return self.text.pos_emb.device
+        return self.text.proj.weight.device
 
     @property
     def image_size(self) -> int:
@@ -133,9 +155,10 @@ class ItemEncoderModel(nn.Module):
         self, input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """(B, T) token ids -> (B, d) float32 text embeddings. MiniLM pools
-        over ``attention_mask`` and takes all-ones where none is given."""
-        if self.cfg.encoder_type == "resnet_sbert" and attention_mask is None:
+        """(B, T) token ids -> (B, d) float32 text embeddings. MiniLM and
+        DeepSeek-V2 pool over ``attention_mask`` and take all-ones where none
+        is given."""
+        if self.cfg.encoder_type in HEADED and attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         return self._finish(self.text(input_ids, attention_mask))
 

@@ -39,18 +39,19 @@ def check_operands(kernel: str, ref: torch.Tensor, **tensors: torch.Tensor) -> N
             raise ValueError(f"{kernel}: {name} must be 32-byte aligned")
 
 
-def bind(name: str, argtypes: Sequence):
-    """The C entry ``name`` of ``csrc/<name>.cu``, built at first use, with
-    its argument and result types set the first time it is taken from a
-    loaded library."""
+def bind(name: str, argtypes: Sequence, entry: str = None):
+    """The C entry ``entry`` (by default ``name``) of ``csrc/<name>.cu``,
+    built at first use, with its argument and result types set the first
+    time it is taken from a loaded library."""
     lib = _build.load(name)
-    hit = _bound.get(name)
+    entry = entry or name
+    hit = _bound.get(entry)
     if hit is not None and hit[0] is lib:
         return hit[1]
-    fn = getattr(lib, name)
+    fn = getattr(lib, entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
-    _bound[name] = (lib, fn)
+    _bound[entry] = (lib, fn)
     return fn
 
 

@@ -32,6 +32,13 @@ over resnet_sbert embeddings) takes both kernels' narrow-head route
 thread a query row repeating the same float32 arithmetic, the products
 that round once on the tensor cores. float32 (the correctness route) and
 bfloat16 at other Dh run the scalar kernels.
+
+Queries and keys of another width than the values (DeepSeek-V2's latent
+attention: Dqk 192, Dv 128, L = 16, causal) take the split route, forward
+only: ``masked_mha_fwd_split`` in the same source, with the caller's
+``scale`` (MLA scales S by its YaRN factor too). Only Dqk != Dv reaches it,
+and only there may a scale be given; its towers take no gradient, so it
+has no backward.
 """
 
 from __future__ import annotations
@@ -50,7 +57,11 @@ _DTYPE_CODES = _launch.DTYPE_CODES
 MAX_L = 256  # forward
 SHORT_L = 64  # backward; above it the forward wants Dh a multiple of 16
 MAX_DH = 128
+MAX_DQK = 256  # the split route's queries and keys
+_SPLIT = "masked_mha_fwd_split"
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -85,12 +96,12 @@ def _tree_sum(x):
     return x
 
 
-def _probs(q, k, pad_mask, causal: bool):
+def _probs(q, k, pad_mask, causal: bool, scale=None):
     """float32 softmax of the masked scores: operands widened exactly, S by
-    ``_scores``, the masks where-set to -1e9 (so a fully masked row is
-    uniform, not NaN)."""
-    dh = q.shape[-1]
-    scale = 1.0 / (dh**0.5)
+    ``_scores`` times ``scale`` (1/sqrt(Dh) by default), the masks
+    where-set to -1e9 (so a fully masked row is uniform, not NaN)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = _scores(q, k) * scale
     scores = scores.masked_fill(pad_mask[:, None, None, :], _NEG)
     if causal:
@@ -100,11 +111,12 @@ def _probs(q, k, pad_mask, causal: bool):
     return torch.softmax(scores, dim=-1)
 
 
-def mha_reference(q, k, v, pad_mask, causal: bool = False):
+def mha_reference(q, k, v, pad_mask, causal: bool = False, scale=None):
     """Plain PyTorch attention with the TPU kernel's numerics: float32
     scores and softmax, probabilities rounded to the input dtype before P V,
-    float32 accumulation, output in the input dtype."""
-    probs = _probs(q, k, pad_mask, causal).to(q.dtype)
+    float32 accumulation, output in the input dtype. v may be of another
+    width than q and k (the split route)."""
+    probs = _probs(q, k, pad_mask, causal, scale).to(q.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
@@ -189,6 +201,49 @@ def _masked_mha_cuda(q, k, v, pad_mask, causal: bool):
     return out
 
 
+def _check_split(q, k, v, pad_mask):
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"masked_mha kernel takes float32 or bfloat16, not {q.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"split route: q, k (B, H, L, Dqk) and v (B, H, L, Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, l, dqk = q.shape
+    dv = v.shape[-1]
+    if not 1 <= l <= SHORT_L or not 8 <= dqk <= MAX_DQK or dqk % 8 \
+            or not 8 <= dv <= MAX_DH or dv % 8:
+        raise ValueError(
+            f"masked_mha split route takes 1 <= L <= {SHORT_L}, Dqk a multiple "
+            f"of 8 up to {MAX_DQK} and Dv a multiple of 8 up to {MAX_DH}, got "
+            f"L={l}, Dqk={dqk}, Dv={dv}")
+    if pad_mask.dtype != torch.bool or tuple(pad_mask.shape) != (b, l) \
+            or pad_mask.device != q.device:
+        raise ValueError(f"pad_mask must be bool (B, L) = {(b, l)} on q's device")
+    for name, t in {"k": k, "v": v}.items():
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in dtype and device")
+    for name, t in {"q": q, "k": k, "v": v, "pad_mask": pad_mask}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16 and name != "pad_mask":
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _masked_mha_split_cuda(q, k, v, pad_mask, causal: bool, scale: float):
+    _check_split(q, k, v, pad_mask)
+    fn = _launch.bind(_FWD, _SPLIT_ARGTYPES, entry=_SPLIT)
+    b, h, l, dqk = q.shape
+    out = torch.empty((b, h, l, v.shape[-1]), dtype=q.dtype, device=q.device)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(),
+        out.data_ptr(), b, h, l, dqk, v.shape[-1], float(scale), int(causal),
+        _DTYPE_CODES[q.dtype], _launch.current_stream(q.get_device()),
+    )
+    if err != 0:
+        raise RuntimeError(f"{_SPLIT} launch failed: cudaError {err}")
+    masked_mha.split_launches += 1
+    return out
+
+
 def _masked_mha_bwd_cuda(q, k, v, pad_mask, g, causal: bool):
     _check(q, k, v, pad_mask, g)
     fn = _launch.bind(_BWD, _BWD_ARGTYPES)
@@ -212,15 +267,22 @@ class MaskedMHA(torch.autograd.Function):
     version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad_mask, causal):
+    def forward(ctx, q, k, v, pad_mask, causal, scale):
         ctx.save_for_backward(q, k, v, pad_mask)
         ctx.causal = causal
+        ctx.split = v.shape[-1] != q.shape[-1]
+        if ctx.split:
+            if _wants_kernel(q):
+                return _masked_mha_split_cuda(q, k, v, pad_mask, causal, scale)
+            return mha_reference(q, k, v, pad_mask, causal, scale)
         if _wants_kernel(q):
             return _masked_mha_cuda(q, k, v, pad_mask, causal)
         return mha_reference(q, k, v, pad_mask, causal)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.split:
+            raise RuntimeError("masked_mha has no backward at Dqk != Dv")
         q, k, v, pad_mask = ctx.saved_tensors
         if _wants_kernel(q):
             dq, dk, dv = _masked_mha_bwd_cuda(
@@ -228,13 +290,17 @@ class MaskedMHA(torch.autograd.Function):
             )
         else:
             dq, dk, dv = mha_bwd_reference(q, k, v, pad_mask, g, ctx.causal)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def masked_mha(q, k, v, pad_mask, causal: bool = False):
+def masked_mha(q, k, v, pad_mask, causal: bool = False, scale=None):
     """Multi-head attention with a key-padding mask (True = pad) and an
     optional causal mask. q, k, v: (B, H, L, Dh); pad_mask: (B, L) bool.
     Returns (B, H, L, Dh) in q's dtype; differentiable in q, k and v.
+
+    v of another width Dv than q and k (the split route) returns (B, H, L,
+    Dv), forward only; there alone ``scale`` may replace 1/sqrt(Dqk), and a
+    launch on the card adds one to ``masked_mha.split_launches``.
 
     On the card the forward launches its CUDA kernel and adds one to
     ``masked_mha.launches``, the backward launches its own and adds one to
@@ -242,8 +308,13 @@ def masked_mha(q, k, v, pad_mask, causal: bool = False):
     The bfloat16 forward and backward on the card want finite inputs: their
     tiles multiply P = 0 (and, backward, dS = 0) by neighbouring slabs'
     values, so an Inf there gives NaN here."""
-    return MaskedMHA.apply(q, k, v, pad_mask, causal)
+    if scale is not None and v.shape[-1] == q.shape[-1]:
+        raise ValueError("masked_mha takes a scale only where Dqk != Dv")
+    if scale is None and v.shape[-1] != q.shape[-1]:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return MaskedMHA.apply(q, k, v, pad_mask, causal, scale)
 
 
 masked_mha.launches = 0
 masked_mha.bwd_launches = 0
+masked_mha.split_launches = 0

@@ -172,6 +172,19 @@ def test_original_cp_envelope_and_devices(monkeypatch, capsys):
     assert calls[0][1]["device"] == "cuda"
 
 
+def test_original_cp_takes_the_dsv2lite_pair(monkeypatch, capsys):
+    """--encoder resnet_dsv2lite puts DeepSeek-V2-Lite in MiniLM's place;
+    another pair's name leaves original-CP on resnet_sbert."""
+    argv = ["original-cp", "--encoder", "resnet_dsv2lite", "--device", "cpu"]
+    (cfg, model_cfg, mode), kw = _calls_port(monkeypatch, argv, capsys)[0]
+    assert model_cfg.item_encoder.encoder_type == "resnet_dsv2lite"
+    assert model_cfg.item_encoder.text_model_name == "deepseek-ai/DeepSeek-V2-Lite"
+    assert model_cfg.d_embed == 128 and (cfg.batch_size, cfg.accumulation_steps) == (350, 10)
+    argv = ["original-cp", "--encoder", "clip", "--device", "cpu"]
+    (_, model_cfg, _), _ = _calls_port(monkeypatch, argv, capsys)[0]
+    assert model_cfg.item_encoder.encoder_type == "resnet_sbert"
+
+
 @pytest.mark.parametrize("argv, words", [
     (["fitb", "--mode", "train-valid"], "test only"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else a)
