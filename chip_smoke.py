@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only dsv2   # env, build and the dsv2 phase alone
+    python3 chip_smoke.py --only resnet # env, build and the resnet phase alone
 
 Each phase's seconds print at the end (``phase_seconds``).
 Phases, each printing one JSON line:
@@ -367,7 +368,8 @@ LAYERNORM_TIMING_SHAPES = [
     (131072, 384), (89600, 384), (5950, 128), (13056, 1536), (6528, 1536),
 ]
 LAYERNORM_EPS = {1536: 1e-5, 768: 1e-6, 384: 1e-12, 128: 1e-5}
-KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm"]
+KERNELS = ["masked_mha_fwd", "masked_mha_bwd", "attn_block", "mlp_fused", "layernorm",
+           "resnet_nhwc"]
 # Precompute: the JAX CLI's default synthetic catalog and PrecomputeConfig's
 # batch; the fused-MLP pass and the CLIP pair run one smaller sweep each.
 PRECOMPUTE_ITEMS = 4096
@@ -898,6 +900,269 @@ def phase_dsv2():
     emit({"phase": "dsv2", "masked_mha_fwd_split": cases, "grouped_mm": grouped,
           "timing": {"masked_mha_fwd_split": mla, "grouped_mm": experts},
           "nvidia_smi": nvidia_smi_line()})
+
+
+# -------------------------------------------------------------- resnet --
+# ResNet-18 on its NHWC route (models/towers/resnet.py, csrc/resnet_nhwc.cu)
+# at an original-CP microbatch: 5,600 images of 224 x 224. The kernels bit
+# for bit against their plain versions at RESNET_CHECK_B images and odd
+# sizes, then at the microbatch's shapes (the stem's 112 x 112 x 64 output
+# and stage 1's 56 x 56 x 64) over the whole microbatch, the plain versions
+# RESNET_F32_CHUNK images at a time, and timed there; the tower on the route and on the
+# NCHW eager math it replaced, each against the float32 tower (NCHW, TF32
+# off, in chunks), on random images under BatchNorm statistics calibrated
+# on the first 64 of them.
+RESNET_B, RESNET_CHECK_B, RESNET_F32_CHUNK = 5600, 64, 700
+RESNET_PLAIN_B = 1400  # the plain stem pass in float32 temporaries: a quarter
+RESNET_ERR_RATIO_MAX = 1.5
+RESNET_TURNS = 5
+
+
+def _resnet_nchw_features(model, x, calibrate: bool = False):
+    """ResNet-18's pooled features on the NCHW eager math that the NHWC
+    route replaced: each BatchNorm a multiply-add after its convolution,
+    its scale and bias rounded to x's dtype; in float32 the float32 tower.
+    ``calibrate`` first sets each BatchNorm's statistics to its input's
+    over ``x``."""
+    def bn(m, y):
+        if calibrate:
+            m.running_mean.copy_(y.float().mean(dim=(0, 2, 3)))
+            m.running_var.copy_(y.float().var(dim=(0, 2, 3), unbiased=False))
+        scale = (m.weight * torch.rsqrt(m.running_var + m.eps)).to(y.dtype)
+        bias = (m.bias - m.running_mean * scale).to(y.dtype)
+        return y * scale[None, :, None, None] + bias[None, :, None, None]
+
+    def conv(c, y):
+        return F.conv2d(y, c.weight.to(y.dtype), stride=c.stride, padding=c.padding)
+
+    x = F.max_pool2d(F.relu(bn(model.bn1, conv(model.conv1, x))), 3, 2, padding=1)
+    for stage in model.stages():
+        for blk in stage:
+            y = bn(blk.bn2, conv(blk.conv2, F.relu(bn(blk.bn1, conv(blk.conv1, x)))))
+            if blk.downsample is not None:
+                x = bn(blk.downsample[1], conv(blk.downsample[0], x))
+            x = F.relu(x + y)
+    return x.mean(dim=(2, 3))
+
+
+def _resnet_kernel_checks(images):
+    """Each kernel against its plain version, bit for bit, float32 and
+    bfloat16: the normaliser against the float32 normaliser then a cast
+    (what the tower took before), the epilogue with and without a
+    residual and the stem's pool at the tower's widths and at odd sizes."""
+    from outfitx_tpu_torch.data.preprocess import STATS, make_normalizer
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
+    mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                 for v in STATS["resnet_sbert"])
+    b = RESNET_CHECK_B
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cases = []
+
+    def case(kernel, dtype, shape, got, want):
+        cases.append({"kernel": kernel, "dtype": _dtype_name(dtype), "shape": list(shape),
+                      "unequal": int((got != want).sum())})
+        check(torch.equal(got, want), f"resnet_nhwc disagrees with its plain version: {cases[-1]}")
+
+    odd = torch.randint(0, 256, (3, 3, 37, 41), generator=gen, device="cuda", dtype=torch.uint8)
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in (images[:b], odd):
+            got = rn.normalize(x, mean, std, dtype)
+            check(got.is_contiguous(memory_format=torch.channels_last), "normalize is not NHWC")
+            case("normalize", dtype, x.shape, got,
+                 make_normalizer("resnet_sbert")(x).to(dtype))
+        for shape in ((b, 64, 112, 112), (b, 64, 56, 56), (b, 128, 28, 28), (b, 256, 14, 14),
+                      (b, 512, 7, 7), (3, 64, 37, 41), (2, 64, 1, 2)):
+            y, res = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                      .contiguous(memory_format=torch.channels_last) for _ in range(2))
+            bias = torch.randn(shape[1], generator=gen, device="cuda")
+            case("bias_add_relu", dtype, shape, rn.bias_add_relu(y.clone(), bias, res),
+                 rn.bias_add_relu_reference(y, bias, res))
+            case("bias_relu", dtype, shape, rn.bias_add_relu(y.clone(), bias),
+                 rn.bias_add_relu_reference(y, bias))
+            if shape[1] == 64:
+                case("stem_pool", dtype, shape, rn.stem_pool(y, bias),
+                     rn.stem_pool_reference(y, bias))
+    torch.cuda.synchronize()
+    return cases
+
+
+def _against_plain(kernel, got, plain, checks):
+    """The kernel's output over the whole microbatch against ``plain(s)``,
+    its plain version over the images of slice ``s``, RESNET_F32_CHUNK
+    images at a time: the largest absolute difference and the unequal
+    elements, appended to ``checks``; equal bit for bit or it fails."""
+    err, unequal = 0.0, 0
+    for i in range(0, got.shape[0], RESNET_F32_CHUNK):
+        s = slice(i, i + RESNET_F32_CHUNK)
+        want = plain(s)
+        err = max(err, float((got[s].float() - want.float()).abs().max()))
+        unequal += int((got[s] != want).sum())
+        del want
+    checks.append({"kernel": kernel, "shape": list(got.shape), "elements": got.numel(),
+                   "max_abs_err": err, "unequal": unequal})
+    check(unequal == 0, f"resnet_nhwc disagrees with its plain version: {checks[-1]}")
+
+
+def _resnet_kernel_timing(images):
+    """The kernels at the microbatch's shapes (bfloat16). Each first against
+    its plain version over the whole microbatch, chunked (the stem's
+    tensors hold 4.5e9 elements, past 32-bit offsets); then ms (CUDA
+    events), the bytes bound (each byte read once and written once), the
+    plain version and, for the pool, PyTorch's max-pool alone over the same
+    NHWC tensor (which also writes int64 indices). Returns the timings and
+    the full-size checks."""
+    from outfitx_tpu_torch.data.preprocess import STATS
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
+    dt, cl, n = torch.bfloat16, torch.channels_last, RESNET_B
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                 for v in STATS["resnet_sbert"])
+    checks = []
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    def activation(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dt).contiguous(
+            memory_format=cl)
+
+    _against_plain("normalize", rn.normalize(images, mean, std, dt),
+                   lambda s: rn.normalize_reference(images[s], mean, std, dt), checks)
+    out = {"normalize": {
+        "shape": list(images.shape),
+        "ms": cuda_ms(lambda: rn.normalize(images, mean, std, dt), 10),
+        "bound_ms": bound(images.numel() * 3), "bound_by": "bytes",
+        "plain_ms": cuda_ms(lambda: rn.normalize_reference(images, mean, std, dt), 3, warmup=1),
+    }}
+    y, res = activation((n, 64, 112, 112)), activation((n, 64, 112, 112))
+    bias = torch.randn(64, generator=gen, device="cuda")
+    _against_plain("stem_pool", rn.stem_pool(y, bias),
+                   lambda s: rn.stem_pool_reference(y[s], bias), checks)
+    got = rn.bias_add_relu(y.clone(), bias)
+    _against_plain("bias_relu", got, lambda s: rn.bias_add_relu_reference(y[s], bias), checks)
+    rn.bias_add_relu(got.copy_(y), bias, res)
+    _against_plain("bias_add_relu", got,
+                   lambda s: rn.bias_add_relu_reference(y[s], bias, res[s]), checks)
+    del got, res
+    torch.cuda.empty_cache()
+    part = y[:RESNET_PLAIN_B]
+    out["stem_pool"] = {
+        "shape": list(y.shape), "ms": cuda_ms(lambda: rn.stem_pool(y, bias), 10),
+        "bound_ms": bound(y.numel() * 2 * 1.25), "bound_by": "bytes",
+        "plain_ms": cuda_ms(lambda: rn.stem_pool_reference(part, bias), 3, warmup=1),
+        "plain_images": RESNET_PLAIN_B,
+        "library_ms": cuda_ms(lambda: F.max_pool2d(y, 3, 2, padding=1), 10),
+    }
+    out["bias_add_relu_stem"] = {
+        "shape": list(y.shape), "residual": False,
+        "ms": cuda_ms(lambda: rn.bias_add_relu(y, bias), 10),
+        "bound_ms": bound(y.numel() * 2 * 2), "bound_by": "bytes",
+        "plain_ms": cuda_ms(lambda: rn.bias_add_relu_reference(part, bias), 3, warmup=1),
+        "plain_images": RESNET_PLAIN_B,
+    }
+    del y, part
+    torch.cuda.empty_cache()
+    y, res = activation((n, 64, 56, 56)), activation((n, 64, 56, 56))
+    for r in (res, None):
+        _against_plain("bias_add_relu" if r is not None else "bias_relu",
+                       rn.bias_add_relu(y.clone(), bias, r),
+                       lambda s: rn.bias_add_relu_reference(
+                           y[s], bias, r[s] if r is not None else None), checks)
+    for name, r in (("bias_add_relu_stage1", res), ("bias_relu_stage1", None)):
+        out[name] = {
+            "shape": list(y.shape), "residual": r is not None,
+            "ms": cuda_ms(lambda: rn.bias_add_relu(y, bias, r), 10),
+            "bound_ms": bound(y.numel() * 2 * (3 if r is not None else 2)), "bound_by": "bytes",
+            "plain_ms": cuda_ms(lambda: rn.bias_add_relu_reference(y, bias, r), 3, warmup=1),
+        }
+    del y, res
+    torch.cuda.empty_cache()
+    return out, checks
+
+
+def _row_errors(got, ref):
+    """Each item's ||got - ref|| / ||ref|| over its pooled features."""
+    return ((got.float() - ref).norm(dim=1) / ref.norm(dim=1)).cpu()
+
+
+def phase_resnet():
+    """The NHWC route's kernels against their plain versions and timed; the
+    tower at an original-CP microbatch on the route and on the NCHW math it
+    replaced: each one's error against the float32 tower (the route's
+    worst item within RESNET_ERR_RATIO_MAX of the other's), their forward
+    ms (medians of RESNET_TURNS), peak memory and the route's launches."""
+    from outfitx_tpu_torch.data.preprocess import make_normalizer
+    from outfitx_tpu_torch.models.item_encoder import resnet_normalizer
+    from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    images = torch.randint(0, 256, (RESNET_B, 3, 224, 224), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    cases = _resnet_kernel_checks(images)
+    timing, full_size = _resnet_kernel_timing(images)
+
+    model = ResNet18(ResNet18Config())
+    model.init_weights_(torch.Generator().manual_seed(21))
+    model = model.to("cuda").eval()
+    to_f32 = make_normalizer("resnet_sbert")
+    to_route = resnet_normalizer("resnet_sbert", torch.bfloat16)
+    with torch.no_grad():
+        _resnet_nchw_features(model, to_f32(images[:64]), calibrate=True)
+        ref = torch.cat([_resnet_nchw_features(model, to_f32(images[i:i + RESNET_F32_CHUNK]))
+                         for i in range(0, RESNET_B, RESNET_F32_CHUNK)])
+
+        def route():
+            return model.features(to_route(images))
+
+        def nchw():
+            return _resnet_nchw_features(model, to_f32(images).to(torch.bfloat16))
+
+        counts = (rn.normalize.launches, rn.stem_pool.launches, rn.bias_add_relu.launches)
+        feats = route()
+        torch.cuda.synchronize()
+        launches = [a - b for a, b in zip(
+            (rn.normalize.launches, rn.stem_pool.launches, rn.bias_add_relu.launches), counts)]
+        check(launches == [1, 1, 16], f"the NHWC route launched {launches}, not [1, 1, 16]")
+        err_route = _row_errors(feats, ref)
+        del feats
+        err_nchw = _row_errors(nchw(), ref)
+        torch.cuda.empty_cache()
+        peaks = {}
+        for name, fn in (("route", route), ("nchw", nchw)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated()
+        ms = {name: _median_ms(fn, 1, RESNET_TURNS) for name, fn in (("route", route),
+                                                                     ("nchw", nchw))}
+        profile = {name: profile_call(fn, top=8) for name, fn in (("route", route),
+                                                                  ("nchw", nchw))}
+    ratio = float(err_route.max() / err_nchw.max())
+    emit({
+        "phase": "resnet", "images": list(images.shape), "kernel_checks": cases,
+        "full_size_checks": full_size, "kernels": timing,
+        "tower": {
+            "rel_err_vs_float32_worst": {"route": float(err_route.max()),
+                                         "nchw": float(err_nchw.max())},
+            "rel_err_vs_float32_median": {"route": float(err_route.median()),
+                                          "nchw": float(err_nchw.median())},
+            "worst_ratio": ratio, "worst_ratio_max": RESNET_ERR_RATIO_MAX,
+            "forward_ms_median": {k: v[0] for k, v in ms.items()},
+            "forward_ms_turns": {k: v[1] for k, v in ms.items()},
+            "peak_memory_bytes": peaks, "launches_a_forward": launches,
+            "profile": profile,
+        },
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    check(ratio <= RESNET_ERR_RATIO_MAX,
+          f"the NHWC route's worst error is {ratio:.3f}x the NCHW route's")
+    del images, ref
+    torch.cuda.empty_cache()
+    return timing, max(c["max_abs_err"] for c in full_size)
 
 
 def phase_build():
@@ -2243,6 +2508,7 @@ def phase_train():
 
 
 def _ocp_counts():
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.layernorm import layer_norm
 
@@ -2250,14 +2516,17 @@ def _ocp_counts():
         "masked_mha_fwd": masked_mha.launches,
         "masked_mha_bwd": masked_mha.bwd_launches,
         "layernorm": layer_norm.launches,
+        "resnet_nhwc": rn.normalize.launches + rn.stem_pool.launches + rn.bias_add_relu.launches,
     }
 
 
 def _reset_ocp_counts():
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.layernorm import layer_norm
 
     masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
+    rn.normalize.launches = rn.stem_pool.launches = rn.bias_add_relu.launches = 0
 
 
 def _ocp_step_grads(net, source, split, device):
@@ -2448,6 +2717,8 @@ def phase_original_cp():
             "masked_mha_fwd": (tc.n_layers + model_cfg.transformer.n_layers) * (micro + evals),
             "masked_mha_bwd": model_cfg.transformer.n_layers * micro,
             "layernorm": (minilm_ln + _ln_per_forward(model_cfg)) * (micro + evals),
+            # the normaliser, the stem's epilogue and pool, two epilogues a block
+            "resnet_nhwc": (2 + 2 * 4 * vc.blocks_per_stage) * (micro + evals),
         }
         check(counts == want, f"original-CP launches {counts}, expected {want}")
         changed = [n for n, p in encoder.named_parameters()
@@ -4455,6 +4726,10 @@ def main() -> int:
         timed("dsv2", phase_dsv2)
         emit({"phase_seconds": seconds, "total": time.perf_counter() - started})
         return 0
+    if sys.argv[1:3] == ["--only", "resnet"]:
+        timed("resnet", phase_resnet)
+        emit({"phase_seconds": seconds, "total": time.perf_counter() - started})
+        return 0
     max_err = timed("kernels", phase_kernels)
     engine, q8_engine, serve_launches = timed("serve", phase_serve)
     train_launches = timed("train", phase_train)
@@ -4466,6 +4741,7 @@ def main() -> int:
     cli_launches = timed("cli", phase_cli)
     parallel_launches = timed("parallel", phase_parallel)
     timed("dsv2", phase_dsv2)
+    resnet, max_err["resnet_nhwc"] = timed("resnet", phase_resnet)
     fwd, bwd, towers, layernorm, host = timed("timing", phase_timing, engine, q8_engine)
     rows = [
         ("masked_mha_fwd", "outfitx_tpu/ops/attention.py:76", fwd[8], {
@@ -4501,6 +4777,13 @@ def main() -> int:
             "at_parallel_dp_rank": layernorm["6528x1536"],
             "host_us_per_call_at_serving_bucket": host,
         }),
+        ("resnet_nhwc", "none (XLA fuses the JAX tower's BatchNorm, ReLU, adds and pool)",
+         resnet["stem_pool"], {
+             "at_stem_bias_relu": resnet["bias_add_relu_stem"],
+             "at_stage1_bias_add_relu": resnet["bias_add_relu_stage1"],
+             "at_stage1_bias_relu": resnet["bias_relu_stage1"],
+             "normalize": resnet["normalize"],
+         }),
     ]
     by_path = {
         **serve_launches, **train_launches, **precompute_launches,

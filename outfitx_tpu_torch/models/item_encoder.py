@@ -21,9 +21,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from outfitx_tpu_torch.core import dtypes, trace
 from outfitx_tpu_torch.core.config import ItemEncoderConfig
 from outfitx_tpu_torch.core.device import resolve_device
-from outfitx_tpu_torch.data.preprocess import make_normalizer
+from outfitx_tpu_torch.data.preprocess import STATS, make_normalizer
 from outfitx_tpu_torch.models.towers import (
     TextTower,
     TextTowerConfig,
@@ -34,6 +35,7 @@ from outfitx_tpu_torch.models.towers.common import ATTN_ROUTES, MLP_ROUTES
 from outfitx_tpu_torch.models.towers.deepseek_v2 import DeepseekV2, DeepseekV2Config
 from outfitx_tpu_torch.models.towers.minilm import MiniLM, MiniLMConfig
 from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
+from outfitx_tpu_torch.ops import resnet_nhwc
 from outfitx_tpu_torch.utils import aggregate_embeddings
 
 # The fresh heads of resnet_sbert and resnet_dsv2lite, the only parameters
@@ -59,6 +61,23 @@ def tower_configs(cfg: ItemEncoderConfig):
             DeepseekV2Config(d_out=cfg.dim_per_modality),
         )
     raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} has no towers")
+
+
+def resnet_normalizer(encoder_type: str, dtype: torch.dtype):
+    """ResNet-18's input: (B, 3, H, W) uint8 -> ``make_normalizer``'s
+    float32 ``(x / 255 - mean) / std``, rounded once to ``dtype`` and laid
+    out channels-last, in one pass on the card (``ops/resnet_nhwc.py``)."""
+    mean, std = STATS[encoder_type]
+    stats = {}  # made once a device, as make_normalizer's
+
+    def normalize(x_uint8: torch.Tensor) -> torch.Tensor:
+        dev = x_uint8.device
+        if dev not in stats:
+            stats[dev] = tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                               for v in (mean, std))
+        return resnet_nhwc.normalize(x_uint8, *stats[dev], dtype)
+
+    return normalize
 
 
 class ItemEncoderModel(nn.Module):
@@ -104,6 +123,8 @@ class ItemEncoderModel(nn.Module):
             if attn not in ATTN_ROUTES or mlp not in MLP_ROUTES:
                 raise ValueError(f"unknown tower route attn={attn!r}, mlp={mlp!r}")
             self.vision = ResNet18(vc)
+            self.normalize_images = resnet_normalizer(
+                cfg.encoder_type, dtypes.resolve(vc.compute_dtype))
             if cfg.encoder_type == "resnet_dsv2lite":
                 self.text = DeepseekV2(tc, device=dev)
             else:
@@ -111,7 +132,7 @@ class ItemEncoderModel(nn.Module):
         else:
             self.vision = VisionTower(vc, attn=attn, mlp=mlp)
             self.text = TextTower(tc, attn=attn, mlp=mlp)
-        self.normalize_images = make_normalizer(cfg.encoder_type)
+            self.normalize_images = make_normalizer(cfg.encoder_type)
         gen = torch.Generator().manual_seed(seed)
         self.vision.init_weights_(gen)
         if isinstance(self.text, DeepseekV2):
@@ -148,8 +169,10 @@ class ItemEncoderModel(nn.Module):
         return emb
 
     def encode_images(self, images_uint8: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H, W) uint8 -> (B, d) float32 image embeddings."""
-        return self._finish(self.vision(self.normalize_images(images_uint8)))
+        """(B, 3, H, W) uint8 -> (B, d) float32 image embeddings, inside the
+        span ``outfitx.vision``."""
+        with trace.span("outfitx.vision"):
+            return self._finish(self.vision(self.normalize_images(images_uint8)))
 
     def encode_texts(
         self, input_ids: torch.Tensor,

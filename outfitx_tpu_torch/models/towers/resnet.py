@@ -6,15 +6,18 @@ stem convolution, BatchNorm and ReLU, a 3x3/2 max-pool, four stages of two
 basic blocks (64/128/256/512 channels, a strided 1x1 downsample at the
 first block of stages 2-4), a global mean pool and ``fc``.
 
-The JAX tower convolves in the torch layout end to end (NCHW activations,
-OIHW weights, ``dimension_numbers=("NCHW", "OIHW", "NCHW")``), so
-``F.conv2d`` takes its weights as they are. BatchNorm runs on its stored
-statistics, folded as the JAX tower folds it: ``scale * rsqrt(var + eps)``
-rounded to the activations' dtype, then ``bias - mean * scale``, then one
-multiply-add. ``F.max_pool2d``'s implicit padding is -inf, as the JAX
-``reduce_window`` with a -inf initial value. Parameter names are
-torchvision's, so ``convert_resnet18`` only selects and widens a
-torchvision state dict.
+The tower runs NHWC (``torch.channels_last``) from its input to the global
+pool: cuDNN's own layout on the card, so it converts nothing. Each frozen
+BatchNorm is folded into the convolution before it at every forward, from
+the current statistics, in float32: ``scale = weight * rsqrt(var + eps)``
+multiplies the convolution's weight before its cast to the compute dtype,
+and ``bias - mean * scale`` stays a float32 bias. One epilogue a
+convolution (``ops/resnet_nhwc.py``) adds the bias, then the block's
+residual, then applies ReLU, rounding once; a downsample's bias joins its
+block's second epilogue, and the stem's epilogue and max-pool are one pass.
+The JAX tower (NCHW, BatchNorm as a multiply-add after each convolution)
+agrees to float32 round-off. Parameter names are torchvision's, so
+``convert_resnet18`` only selects and widens a torchvision state dict.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torch import nn
 
 from outfitx_tpu_torch.core import dtypes
 from outfitx_tpu_torch.models.towers.common import as_f32, dense
+from outfitx_tpu_torch.ops.resnet_nhwc import bias_add_relu, stem_pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +47,8 @@ class ResNet18Config:
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm in inference mode on stored statistics (torchvision
-    names, without ``num_batches_tracked``)."""
+    """BatchNorm on stored statistics (torchvision names, without
+    ``num_batches_tracked``), folded into the convolution before it."""
 
     def __init__(self, c: int, eps: float):
         super().__init__()
@@ -54,25 +58,27 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
-        scale = (self.weight * torch.rsqrt(self.running_var + self.eps)).to(x.dtype)
-        bias = (self.bias - self.running_mean * scale).to(x.dtype)
-        return x * scale[None, :, None, None] + bias[None, :, None, None]
+    def fold(self):
+        """(scale, bias) in float32 from the current statistics."""
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias - self.running_mean * scale
 
 
 class Conv(nn.Module):
-    """A bias-free convolution whose weight (Cout, Cin, K, K) is cast to the
-    activations' dtype where it is used."""
+    """A bias-free convolution, weight (Cout, Cin, K, K) in float32."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
 
-    def forward(self, x):
-        return F.conv2d(
-            x, self.weight.to(x.dtype), stride=self.stride, padding=self.padding
-        )
+    def forward(self, x, bn: FrozenBatchNorm):
+        """x NHWC -> (the convolution with ``bn``'s scale folded into its
+        weight, NHWC in x's dtype; ``bn``'s float32 bias, for an epilogue)."""
+        scale, bias = bn.fold()
+        w = self.weight * scale[:, None, None, None]
+        w = w.to(x.dtype, memory_format=torch.channels_last)
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding), bias
 
 
 class BasicBlock(nn.Module):
@@ -89,10 +95,12 @@ class BasicBlock(nn.Module):
         )
 
     def forward(self, x):
-        y = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+        y = bias_add_relu(*self.conv1(x, self.bn1))
+        y, bias = self.conv2(y, self.bn2)
         if self.downsample is not None:
-            x = self.downsample(x)
-        return F.relu(x + y)
+            x, shortcut_bias = self.downsample[0](x, self.downsample[1])
+            bias = bias + shortcut_bias
+        return bias_add_relu(y, bias, x)
 
 
 class ResNet18(nn.Module):
@@ -129,14 +137,17 @@ class ResNet18(nn.Module):
             self.fc.weight.uniform_(-bound, bound, generator=gen)
             self.fc.bias.uniform_(-bound, bound, generator=gen)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = images.to(dtypes.resolve(self.cfg.compute_dtype))
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B, 3, H, W) normalised, in any layout and dtype -> (B,
+        512) globally pooled, in the compute dtype."""
+        dtype = dtypes.resolve(self.cfg.compute_dtype)
+        x = stem_pool(*self.conv1(images.to(dtype, memory_format=torch.channels_last), self.bn1))
         for stage in self.stages():
             x = stage(x)
-        x = x.mean(dim=(2, 3))  # global average pool
-        return dense(x, self.fc.weight, self.fc.bias)
+        return x.mean(dim=(2, 3))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return dense(self.features(images), self.fc.weight, self.fc.bias)
 
 
 def convert_resnet18(

@@ -1,0 +1,260 @@
+"""The ResNet-18 tower's NHWC route (``models/towers/resnet.py``,
+``ops/resnet_nhwc.py``, ``models/item_encoder.py resnet_normalizer``).
+
+On the CPU: the state dict keeps torchvision's names and shapes; each
+BatchNorm is folded from the statistics the tower holds at that forward,
+so statistics set by ``load_state_dict`` or in place after a first forward
+change the next output; the folded tower equals BatchNorm run after each
+convolution in NCHW to float32 round-off; each convolution has one
+epilogue (the stem's with the max-pool); the ResNet normaliser gives the
+float32 normaliser's values rounded once, NHWC, and CLIP's and SigLIP's
+normalisers are unchanged; the epilogues' plain versions equal the
+unfused passes, pooling before the epilogue too; the image tower records
+one ``outfitx.vision`` span an encode under a profiler, which the
+benchmark's ``vision_ms.ocp`` reads. On the card: each
+kernel bit for bit against its plain version. Nothing here imports JAX, so
+the file also runs on the card's machine (``--noconftest -m card``).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+
+from outfitbench.inputs import resnet18_specs
+from outfitx_tpu_torch.core import trace
+from outfitx_tpu_torch.core.config import ItemEncoderConfig
+from outfitx_tpu_torch.data import preprocess
+from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel, resnet_normalizer
+from outfitx_tpu_torch.models.towers import resnet
+from outfitx_tpu_torch.models.towers.minilm import MiniLMConfig
+from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
+from outfitx_tpu_torch.ops import resnet_nhwc
+
+torch.set_num_threads(1)
+
+SMALL = dict(d_out=8, image_size=32, stage_channels=(64, 16, 16, 32), compute_dtype="float32")
+CL = torch.channels_last
+
+
+def _randomize_bn(model, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, resnet.FrozenBatchNorm):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.2, 0.2),
+                                  (m.running_mean, -0.5, 0.5), (m.running_var, 0.5, 1.5)):
+                    t.uniform_(lo, hi, generator=gen)
+    return model
+
+
+def _model(seed=0):
+    model = ResNet18(ResNet18Config(**SMALL))
+    model.init_weights_(torch.Generator().manual_seed(seed))
+    return _randomize_bn(model, seed + 1).eval()
+
+
+def _images(b=3, seed=2):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((b, 3, 32, 32)).astype(
+        np.float32))
+
+
+def _nchw_features(model, x):
+    """The tower with BatchNorm after each convolution, NCHW, float32."""
+    def bn(m, y):
+        scale = m.weight * torch.rsqrt(m.running_var + m.eps)
+        bias = m.bias - m.running_mean * scale
+        return y * scale[None, :, None, None] + bias[None, :, None, None]
+
+    def conv(c, y):
+        return F.conv2d(y, c.weight, stride=c.stride, padding=c.padding)
+
+    x = F.max_pool2d(F.relu(bn(model.bn1, conv(model.conv1, x))), 3, 2, padding=1)
+    for stage in model.stages():
+        for blk in stage:
+            y = bn(blk.bn2, conv(blk.conv2, F.relu(bn(blk.bn1, conv(blk.conv1, x)))))
+            if blk.downsample is not None:
+                x = bn(blk.downsample[1], conv(blk.downsample[0], x))
+            x = F.relu(x + y)
+    return x.mean(dim=(2, 3))
+
+
+def test_state_dict_keeps_torchvision_names_and_shapes():
+    got = {k: tuple(v.shape) for k, v in ResNet18(ResNet18Config(d_out=64)).state_dict().items()}
+    assert got == {name: shape for name, shape, *_ in resnet18_specs(64)}
+    assert all(v.dtype == torch.float32 for v in ResNet18(ResNet18Config()).state_dict().values())
+
+
+def test_folded_nhwc_tower_equals_batchnorm_after_each_convolution():
+    model, x = _model(), _images()
+    with torch.no_grad():
+        got = model.features(x)
+        want = _nchw_features(model, x)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_statistics_changed_after_a_forward_change_the_next_output():
+    """No fold outlives the statistics it was made from: a state dict
+    loaded after a first forward, and statistics set in place (as the
+    benchmark's calibration sets them), each give a fresh model's output."""
+    model, x = _model(0), _images()
+    with torch.no_grad():
+        first = model(x)
+        other = _model(5)
+        model.load_state_dict(other.state_dict())
+        loaded = model(x)
+        np.testing.assert_array_equal(loaded.numpy(), other(x).numpy())
+        assert not torch.equal(loaded, first)
+        sd = model.state_dict()
+        for k in sd:
+            if k.endswith("running_mean"):
+                sd[k].copy_(torch.linspace(-0.3, 0.3, sd[k].numel()))
+            if k.endswith("running_var"):
+                sd[k].mul_(1.5)
+        calibrated = model(x)
+        fresh = ResNet18(ResNet18Config(**SMALL))
+        fresh.load_state_dict(sd)
+        np.testing.assert_array_equal(calibrated.numpy(), fresh(x).numpy())
+        assert not torch.equal(calibrated, loaded)
+
+
+def test_one_epilogue_a_convolution(monkeypatch):
+    """One stem epilogue with the max-pool, two epilogues a block (a
+    downsample's bias joins the block's second), each over NHWC."""
+    calls = {"stem_pool": 0, "bias_add_relu": 0}
+
+    def spy(name, real):
+        def f(y, *a):
+            assert y.is_contiguous(memory_format=CL)
+            calls[name] += 1
+            return real(y, *a)
+        return f
+
+    monkeypatch.setattr(resnet, "stem_pool", spy("stem_pool", resnet_nhwc.stem_pool))
+    monkeypatch.setattr(resnet, "bias_add_relu", spy("bias_add_relu", resnet_nhwc.bias_add_relu))
+    with torch.no_grad():
+        _model()(_images())
+    assert calls == {"stem_pool": 1, "bias_add_relu": 16}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("encoder_type", ["resnet_sbert", "resnet_dsv2lite"])
+def test_resnet_normalizer_rounds_the_float32_normaliser_once(encoder_type, dtype):
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 3, 9, 7), dtype=np.uint8))
+    got = resnet_normalizer(encoder_type, dtype)(x)
+    want = preprocess.make_normalizer(encoder_type)(x).to(dtype)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=CL)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("encoder_type", ["clip", "siglip", "resnet_sbert"])
+def test_float32_normalizer_is_unchanged(encoder_type):
+    """The normaliser CLIP and SigLIP run, bit for bit as it was written
+    before the ResNet route had its own."""
+    mean, std = preprocess.STATS[encoder_type]
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 3, 8, 8), dtype=np.uint8))
+    mean_t, std_t = (torch.tensor(v, dtype=torch.float32).view(1, 3, 1, 1) for v in (mean, std))
+    got = preprocess.make_normalizer(encoder_type)(x)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, (x.to(torch.float32) / 255.0 - mean_t) / std_t)
+
+
+def _activation(shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype).contiguous(memory_format=CL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_plain_version_equals_the_unfused_passes(dtype):
+    y, res = _activation((2, 16, 5, 6), dtype, 0), _activation((2, 16, 5, 6), dtype, 1)
+    bias = torch.randn(16, generator=torch.Generator().manual_seed(2))
+    b4 = bias[None, :, None, None]
+    got = resnet_nhwc.bias_add_relu(y, bias, res)
+    assert got.is_contiguous(memory_format=CL) and got.dtype == dtype
+    assert torch.equal(got, F.relu((y.float() + b4) + res.float()).to(dtype))
+    assert torch.equal(resnet_nhwc.bias_add_relu(y, bias), F.relu(y.float() + b4).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(12, 12), (7, 9), (1, 2)])
+def test_stem_pool_equals_pooling_before_the_epilogue(dtype, hw):
+    """The kernel's order, the window's max and then the epilogue, gives
+    the plain order's numbers bit for bit: both maps do not decrease."""
+    y = _activation((2, 64, *hw), dtype, 3)
+    bias = torch.randn(64, generator=torch.Generator().manual_seed(4))
+    got = resnet_nhwc.stem_pool(y, bias)
+    want = F.max_pool2d(F.relu(y.float() + bias[None, :, None, None]).to(dtype), 3, 2, padding=1)
+    assert torch.equal(got, want)
+    assert torch.equal(resnet_nhwc.bias_add_relu(F.max_pool2d(y, 3, 2, padding=1), bias), want)
+
+
+def test_vision_span_once_an_encode():
+    cfg = ItemEncoderConfig(encoder_type="resnet_sbert", dim_per_modality=8)
+    enc = ItemEncoderModel(
+        cfg, device="cpu", vision_cfg=ResNet18Config(**SMALL),
+        text_cfg=MiniLMConfig(vocab_size=120, max_len=12, d_model=24, n_heads=4, d_mlp=48,
+                              n_layers=1, d_out=8, compute_dtype="float32"))
+    images = torch.zeros((2, 3, 32, 32), dtype=torch.uint8)
+    ids = torch.ones((2, 12), dtype=torch.int32)
+    trace.clear()
+    with torch.no_grad():
+        enc.encode(images, ids)
+        assert trace.records() == []
+        with profile(activities=[ProfilerActivity.CPU]):
+            enc.encode(images, ids)
+            enc.encode_images(images)
+    assert [r.name for r in trace.records()] == ["outfitx.vision"] * 2
+    trace.clear()
+
+
+def test_vision_reader_and_its_cells():
+    """``vision_ms.ocp``: Σ device s of ``outfitx.vision`` over the profiled
+    microbatches, in ms; None without the spans (as on a program that has
+    none) or without device seconds."""
+    from outfitbench import registry
+    from outfitbench.trace import Record, Spans
+
+    read = registry.reader("vision_ms.ocp")
+    rec = Record(cell={}, config={}, params={"accumulation": 2}, spans=Spans(), counters={},
+                 trace=None, derived={"profiled_steps": 2})
+    recs = [trace.Record(i, None, "outfitx.vision", None, 0.0, 1.0, 0.01 * i) for i in range(1, 5)]
+    encode = [trace.Record(9, None, "outfitx.encode", None, 0.0, 1.0, 0.5)]
+    assert read(rec, recs + encode) == pytest.approx(1e3 * 0.1 / 4, rel=1e-12)
+    assert read(rec, encode) is None and read(None, recs) is None
+    assert read(rec, [trace.Record(1, None, "outfitx.vision", None, 0.0, 1.0)]) is None
+    (entry,) = [m for m in registry.load()["per_layer"] if m["name"] == "vision_ms.ocp"]
+    assert entry["workloads"] == ["resnet-sbert.train_ocp", "dsv2lite.train_ocp"]
+    assert (entry["layer"], entry["moves"]) == ("towers", "ocp_outfits_per_s")
+
+
+# --------------------------------------------------------------- card --
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_equal_their_plain_versions_on_the_card(card, dtype):
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 3, 37, 41), dtype=np.uint8))
+    mean, std = (torch.tensor(v, dtype=torch.float32, device=card)
+                 for v in preprocess.STATS["resnet_sbert"])
+    x = x.to(card)
+    got = resnet_nhwc.normalize(x, mean, std, dtype)
+    assert got.is_contiguous(memory_format=CL)
+    assert torch.equal(got, resnet_nhwc.normalize_reference(x, mean, std, dtype))
+    for shape in ((3, 64, 37, 41), (2, 128, 14, 14), (5, 512, 1, 1)):
+        y, res = (_activation(shape, dtype, s).to(card) for s in (6, 7))
+        bias = torch.randn(shape[1], generator=torch.Generator().manual_seed(8)).to(card)
+        want = resnet_nhwc.bias_add_relu_reference(y, bias, res)
+        assert torch.equal(resnet_nhwc.bias_add_relu(y.clone(), bias, res), want)
+        want = resnet_nhwc.bias_add_relu_reference(y, bias)
+        assert torch.equal(resnet_nhwc.bias_add_relu(y.clone(), bias), want)
+        if shape[1] == 64:
+            assert torch.equal(resnet_nhwc.stem_pool(y, bias),
+                               resnet_nhwc.stem_pool_reference(y, bias))
+    torch.cuda.synchronize()

@@ -8,7 +8,7 @@ its backward tagged 1 and 2 (the microbatch it takes; the second finds the
 end), and one optimizer, all under the step; original-CP adds a ``stage``
 for each microbatch, the first under the step and the second under the
 ``ahead`` tagged 1, each around one ``gather``, and an ``encode`` inside
-each forward. The profiler's own events carry the same names, nested
+each forward with the image tower's ``vision`` inside it. The profiler's own events carry the same names, nested
 alike. The buffer keeps the newest records and counts the dropped. The
 benchmark's six readers of the spans do their arithmetic on synthetic
 records. One test needs the card: a span's device seconds read the card's
@@ -134,7 +134,8 @@ def test_on_under_a_profiler(steps, task):
     want = {"outfitx.step": 1, "outfitx.forward": 2, "outfitx.ahead": 2, "outfitx.backward": 2,
             "outfitx.optimizer": 1}
     if task == "original_cp":
-        want.update({"outfitx.stage": 2, "outfitx.gather": 2, "outfitx.encode": 2})
+        want.update({"outfitx.stage": 2, "outfitx.gather": 2, "outfitx.encode": 2,
+                     "outfitx.vision": 2})
     assert {k: len(v) for k, v in named.items()} == want
 
     (st,) = named["outfitx.step"]
@@ -162,6 +163,7 @@ def test_on_under_a_profiler(steps, task):
         assert sorted(r.parent for r in named["outfitx.gather"]) == sorted(
             r.id for r in named["outfitx.stage"])
         assert parent["outfitx.encode"] == {"outfitx.forward"}
+        assert parent["outfitx.vision"] == {"outfitx.encode"}
 
     events = collections.Counter(
         (e.name, _outer(e)) for e in prof.events() if e.name.startswith("outfitx."))
