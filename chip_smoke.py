@@ -950,11 +950,13 @@ def _resnet_kernel_checks(images):
     bfloat16: the normaliser against the float32 normaliser then a cast
     (what the tower took before), the epilogue with and without a
     residual and the stem's pool at the tower's widths and at odd sizes."""
-    from outfitx_tpu_torch.data.preprocess import STATS, make_normalizer
+    from outfitx_tpu_torch.core.config import ENCODER_PAIRS
+    from outfitx_tpu_torch.data.preprocess import make_normalizer
     from outfitx_tpu_torch.ops import resnet_nhwc as rn
 
+    row = ENCODER_PAIRS["resnet_sbert"]
     mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
-                 for v in STATS["resnet_sbert"])
+                 for v in (row.mean, row.std))
     b = RESNET_CHECK_B
     gen = torch.Generator(device="cuda").manual_seed(22)
     cases = []
@@ -1012,13 +1014,14 @@ def _resnet_kernel_timing(images):
     plain version and, for the pool, PyTorch's max-pool alone over the same
     NHWC tensor (which also writes int64 indices). Returns the timings and
     the full-size checks."""
-    from outfitx_tpu_torch.data.preprocess import STATS
+    from outfitx_tpu_torch.core.config import ENCODER_PAIRS
     from outfitx_tpu_torch.ops import resnet_nhwc as rn
 
     dt, cl, n = torch.bfloat16, torch.channels_last, RESNET_B
     gen = torch.Generator(device="cuda").manual_seed(23)
+    row = ENCODER_PAIRS["resnet_sbert"]
     mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
-                 for v in STATS["resnet_sbert"])
+                 for v in (row.mean, row.std))
     checks = []
 
     def bound(nbytes):

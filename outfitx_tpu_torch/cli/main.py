@@ -21,6 +21,7 @@ import sys
 from typing import List, Optional
 
 from outfitx_tpu_torch.core.config import (
+    ENCODER_PAIRS,
     CIRTrainConfig,
     CPTrainConfig,
     FITBTrainConfig,
@@ -63,7 +64,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-dir", default=None, help="metrics/log output dir")
     p.add_argument("--mesh-data", type=int, default=-1)
     p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--encoder", choices=["siglip", "clip", "resnet_sbert", "resnet_dsv2lite"],
+    p.add_argument("--encoder", choices=list(ENCODER_PAIRS),
                    default="siglip",
                    help="the item encoder's tower pair; original-cp takes resnet_sbert "
                    "(its default) or resnet_dsv2lite")
@@ -190,10 +191,11 @@ def cmd_fitb(args, parser) -> int:
 def cmd_original_cp(args, parser) -> int:
     """End-to-end CP, ResNet-18 and MiniLM (or DeepSeek-V2-Lite with
     ``--encoder resnet_dsv2lite``) inside the train step."""
-    from outfitx_tpu_torch.models.item_encoder import HEADED, ItemEncoderModel
+    from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel
     from outfitx_tpu_torch.train.original_cp_trainer import OriginalCPTrainer, RawItemSource
 
-    enc_cfg = ItemEncoderConfig.for_type(args.encoder if args.encoder in HEADED else "resnet_sbert")
+    headed = ENCODER_PAIRS[args.encoder].trainable_heads
+    enc_cfg = ItemEncoderConfig.for_type(args.encoder if headed else "resnet_sbert")
     model_cfg = OutfitXConfig(item_encoder=enc_cfg)
     cfg = _build_cfg(CPTrainConfig, args)
     if args.batch_size is None:  # the reference's original-CP envelope

@@ -1,10 +1,12 @@
 """Model and training configuration (copy of ``outfitx_tpu/core/config.py``'s
 dataclasses, with the same defaults).
 
-Here: the item encoder (which fixes the embedding width), the set
-transformer, the top-level ``OutfitXConfig``, the optimizer, the CP, CIR
-and FITB training configs, the precompute sweep's config and
-``MeshConfig``, the training configs' ``mesh`` layout. ``remat`` and
+Here: the item-encoder pairs (``ENCODER_PAIRS``: each pair's widths,
+published names, image statistics, trainable heads and tokenizer rule), the
+item encoder (which fixes the embedding width), the set transformer, the
+top-level ``OutfitXConfig``, the optimizer, the CP, CIR and FITB training
+configs, the precompute sweep's config and ``MeshConfig``, the training
+configs' ``mesh`` layout. ``remat`` and
 ``remat_policy`` recompute the encoder layers' activations in the backward
 (``models/outfit_transformer.py``).
 """
@@ -12,16 +14,50 @@ and FITB training configs, the precompute sweep's config and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 REMAT_POLICIES = ("full", "masks", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderPair:
+    """One item-encoder pair's facts: its width per modality, the published
+    towers it names, the image statistics of the image tower's checkpoint
+    (``(x / 255 - mean) / std``), whether its fresh heads train
+    (``models/item_encoder.py TRAINABLE_HEADS``), and whether its text tower
+    reads texts only through its published tokenizer (without its files a
+    trainer raises, naming them). Its towers are ``models/item_encoder.py
+    PAIR_TOWERS``."""
+
+    dim_per_modality: int
+    image_model_name: str
+    text_model_name: str
+    mean: Tuple[float, float, float]
+    std: Tuple[float, float, float]
+    trainable_heads: bool = False
+    published_tokenizer: bool = False
+
+
+_IMAGENET = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+_SIGLIP = "Marqo/marqo-fashionSigLIP"
+_CLIP = "patrickjohncyh/fashion-clip"
+
+# Every pair by its ``encoder_type``, in the order the CLI lists them.
+ENCODER_PAIRS: Dict[str, EncoderPair] = {
+    "siglip": EncoderPair(768, _SIGLIP, _SIGLIP, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
+    "clip": EncoderPair(512, _CLIP, _CLIP, mean=(0.48145466, 0.4578275, 0.40821073),
+                        std=(0.26862954, 0.26130258, 0.27577711)),
+    "resnet_sbert": EncoderPair(64, "resnet18", "sentence-transformers/all-MiniLM-L6-v2",
+                                **_IMAGENET, trainable_heads=True),
+    "resnet_dsv2lite": EncoderPair(64, "resnet18", "deepseek-ai/DeepSeek-V2-Lite", **_IMAGENET,
+                                   trainable_heads=True, published_tokenizer=True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ItemEncoderConfig:
     """Cross-modal item encoder: ``encoder_type`` names the frozen tower
-    pair ('clip' 512/modality, 'resnet_sbert' 64, 'resnet_dsv2lite' 64,
-    'siglip' 768)."""
+    pair, a key of ``ENCODER_PAIRS``."""
 
     encoder_type: str = "siglip"  # {'clip', 'resnet_sbert', 'resnet_dsv2lite', 'siglip'}
     aggregation: str = "concat"  # {'concat', 'mean', 'sum'}
@@ -38,25 +74,17 @@ class ItemEncoderConfig:
             return self.dim_per_modality * 2
         return self.dim_per_modality
 
+    @property
+    def pair(self) -> EncoderPair:
+        """The row of ``ENCODER_PAIRS`` that ``encoder_type`` names."""
+        return ENCODER_PAIRS[self.encoder_type]
+
     @classmethod
     def for_type(cls, encoder_type: str) -> "ItemEncoderConfig":
-        dims = {"clip": 512, "resnet_sbert": 64, "resnet_dsv2lite": 64, "siglip": 768}
-        names = {
-            "clip": ("patrickjohncyh/fashion-clip",) * 2,
-            "resnet_sbert": (
-                "resnet18",
-                "sentence-transformers/all-MiniLM-L6-v2",
-            ),
-            "resnet_dsv2lite": ("resnet18", "deepseek-ai/DeepSeek-V2-Lite"),
-            "siglip": ("Marqo/marqo-fashionSigLIP",) * 2,
-        }
-        img, txt = names[encoder_type]
-        return cls(
-            encoder_type=encoder_type,
-            dim_per_modality=dims[encoder_type],
-            image_model_name=img,
-            text_model_name=txt,
-        )
+        """The pair's row of ``ENCODER_PAIRS``, at the other fields' defaults."""
+        row = ENCODER_PAIRS[encoder_type]
+        return cls(encoder_type=encoder_type, dim_per_modality=row.dim_per_modality,
+                   image_model_name=row.image_model_name, text_model_name=row.text_model_name)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,19 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-SIGLIP_MEAN = (0.5, 0.5, 0.5)
-SIGLIP_STD = (0.5, 0.5, 0.5)
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
-STATS = {
-    "clip": (CLIP_MEAN, CLIP_STD),
-    "siglip": (SIGLIP_MEAN, SIGLIP_STD),
-    "resnet_sbert": (IMAGENET_MEAN, IMAGENET_STD),
-    "resnet_dsv2lite": (IMAGENET_MEAN, IMAGENET_STD),
-}
+from outfitx_tpu_torch.core.config import ENCODER_PAIRS
 
 
 def load_image_uint8(path_or_img, size: int) -> np.ndarray:
@@ -51,21 +39,29 @@ def load_image_uint8(path_or_img, size: int) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8).transpose(2, 0, 1)
 
 
+def image_stats(encoder_type: str, shape):
+    """The pair's image mean and std (``ENCODER_PAIRS``) on a device: a
+    function of the device -> two float32 tensors of ``shape``, made once a
+    device (a tensor made from host values on the card is a copy that waits
+    for the card's queue to drain)."""
+    row, made = ENCODER_PAIRS[encoder_type], {}
+
+    def on(dev: torch.device):
+        if dev not in made:
+            made[dev] = tuple(torch.tensor(v, dtype=torch.float32, device=dev).view(shape)
+                              for v in (row.mean, row.std))
+        return made[dev]
+
+    return on
+
+
 def make_normalizer(encoder_type: str):
-    """(B, 3, H, W) uint8 -> float32 normalised, on the images' device."""
-    mean, std = STATS[encoder_type]
-    # Made once a device: a tensor made from host values on the card is a
-    # copy that waits for the card's queue to drain.
-    stats = {}
+    """(B, 3, H, W) uint8 -> float32 normalised with the pair's image
+    statistics, on the images' device."""
+    stats = image_stats(encoder_type, (1, 3, 1, 1))
 
     def normalize(x_uint8: torch.Tensor) -> torch.Tensor:
-        dev = x_uint8.device
-        if dev not in stats:
-            stats[dev] = tuple(
-                torch.tensor(v, dtype=torch.float32, device=dev).view(1, 3, 1, 1)
-                for v in (mean, std)
-            )
-        mean_t, std_t = stats[dev]
+        mean_t, std_t = stats(x_uint8.device)
         return (x_uint8.to(torch.float32) / 255.0 - mean_t) / std_t
 
     return normalize

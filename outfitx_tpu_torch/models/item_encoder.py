@@ -12,6 +12,11 @@ counterpart) puts DeepSeek-V2-Lite in MiniLM's place
 encoder's device, with the same two fresh heads. Outputs are float32;
 with concat fusion the text half is ``emb[d // 2:]``, which the datasets
 rely on.
+
+A pair is one row of ``PAIR_TOWERS`` (its tower configs) and one of
+``core/config.py ENCODER_PAIRS`` (its widths, names, image statistics,
+trainable heads and tokenizer rule). A tower's class, and its normaliser,
+follow from its config's type (``TOWERS``, ``NORMALIZERS``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from torch import nn
 from outfitx_tpu_torch.core import dtypes, trace
 from outfitx_tpu_torch.core.config import ItemEncoderConfig
 from outfitx_tpu_torch.core.device import resolve_device
-from outfitx_tpu_torch.data.preprocess import STATS, make_normalizer
+from outfitx_tpu_torch.data.preprocess import image_stats, make_normalizer
 from outfitx_tpu_torch.models.towers import (
     TextTower,
     TextTowerConfig,
@@ -38,46 +43,55 @@ from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
 from outfitx_tpu_torch.ops import resnet_nhwc
 from outfitx_tpu_torch.utils import aggregate_embeddings
 
-# The fresh heads of resnet_sbert and resnet_dsv2lite, the only parameters
+# The fresh heads of the pairs with ``trainable_heads``, the only parameters
 # that take a gradient.
 TRAINABLE_HEADS = ("vision.fc.", "text.proj.")
-# The pairs with trainable heads: ResNet-18 and a text tower of their own.
-HEADED = ("resnet_sbert", "resnet_dsv2lite")
+
+# Each pair's towers at its width per modality: (vision config, text config).
+# Its other facts are its row of ``ENCODER_PAIRS``.
+PAIR_TOWERS = {
+    "siglip": lambda d: (VisionTowerConfig.siglip_b16(), TextTowerConfig.siglip_b()),
+    "clip": lambda d: (VisionTowerConfig.clip_b32(), TextTowerConfig.clip_b()),
+    "resnet_sbert": lambda d: (ResNet18Config(d_out=d), MiniLMConfig(d_out=d)),
+    "resnet_dsv2lite": lambda d: (ResNet18Config(d_out=d), DeepseekV2Config(d_out=d)),
+}
+
+# The tower each config builds, and which of the encoder's arguments its
+# constructor takes: the CLIP and SigLIP towers the routes, DeepSeek-V2 the
+# device it is made on.
+TOWERS = {
+    VisionTowerConfig: (VisionTower, ("attn", "mlp")),
+    TextTowerConfig: (TextTower, ("attn", "mlp")),
+    ResNet18Config: (ResNet18, ()),
+    MiniLMConfig: (MiniLM, ()),
+    DeepseekV2Config: (DeepseekV2, ("device",)),
+}
 
 
 def tower_configs(cfg: ItemEncoderConfig):
-    if cfg.encoder_type == "clip":
-        return VisionTowerConfig.clip_b32(), TextTowerConfig.clip_b()
-    if cfg.encoder_type == "siglip":
-        return VisionTowerConfig.siglip_b16(), TextTowerConfig.siglip_b()
-    if cfg.encoder_type == "resnet_sbert":
-        return (
-            ResNet18Config(d_out=cfg.dim_per_modality),
-            MiniLMConfig(d_out=cfg.dim_per_modality),
-        )
-    if cfg.encoder_type == "resnet_dsv2lite":
-        return (
-            ResNet18Config(d_out=cfg.dim_per_modality),
-            DeepseekV2Config(d_out=cfg.dim_per_modality),
-        )
-    raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} has no towers")
+    if cfg.encoder_type not in PAIR_TOWERS:
+        raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} has no towers")
+    return PAIR_TOWERS[cfg.encoder_type](cfg.dim_per_modality)
 
 
 def resnet_normalizer(encoder_type: str, dtype: torch.dtype):
     """ResNet-18's input: (B, 3, H, W) uint8 -> ``make_normalizer``'s
     float32 ``(x / 255 - mean) / std``, rounded once to ``dtype`` and laid
     out channels-last, in one pass on the card (``ops/resnet_nhwc.py``)."""
-    mean, std = STATS[encoder_type]
-    stats = {}  # made once a device, as make_normalizer's
+    stats = image_stats(encoder_type, (3,))
 
     def normalize(x_uint8: torch.Tensor) -> torch.Tensor:
-        dev = x_uint8.device
-        if dev not in stats:
-            stats[dev] = tuple(torch.tensor(v, dtype=torch.float32, device=dev)
-                               for v in (mean, std))
-        return resnet_nhwc.normalize(x_uint8, *stats[dev], dtype)
+        return resnet_nhwc.normalize(x_uint8, *stats(x_uint8.device), dtype)
 
     return normalize
+
+
+# The normaliser each vision tower's images go through, at the pair's
+# statistics: ResNet-18's NHWC kernel, and the float32 one for the ViTs.
+NORMALIZERS = {
+    VisionTowerConfig: lambda etype, vc: make_normalizer(etype),
+    ResNet18Config: lambda etype, vc: resnet_normalizer(etype, dtypes.resolve(vc.compute_dtype)),
+}
 
 
 class ItemEncoderModel(nn.Module):
@@ -119,26 +133,23 @@ class ItemEncoderModel(nn.Module):
                 )
         if cfg.aggregation not in ("concat", "mean", "sum"):
             raise ValueError(f"aggregation {cfg.aggregation!r}")
-        if cfg.encoder_type in HEADED:
-            if attn not in ATTN_ROUTES or mlp not in MLP_ROUTES:
-                raise ValueError(f"unknown tower route attn={attn!r}, mlp={mlp!r}")
-            self.vision = ResNet18(vc)
-            self.normalize_images = resnet_normalizer(
-                cfg.encoder_type, dtypes.resolve(vc.compute_dtype))
-            if cfg.encoder_type == "resnet_dsv2lite":
-                self.text = DeepseekV2(tc, device=dev)
-            else:
-                self.text = MiniLM(tc)
-        else:
-            self.vision = VisionTower(vc, attn=attn, mlp=mlp)
-            self.text = TextTower(tc, attn=attn, mlp=mlp)
-            self.normalize_images = make_normalizer(cfg.encoder_type)
+        if attn not in ATTN_ROUTES or mlp not in MLP_ROUTES:
+            raise ValueError(f"unknown tower route attn={attn!r}, mlp={mlp!r}")
+        given = dict(attn=attn, mlp=mlp, device=dev)
+
+        def build(tower_cfg):
+            cls, takes = TOWERS[type(tower_cfg)]
+            return cls(tower_cfg, **{k: given[k] for k in takes})
+
+        self.vision = build(vc)
+        self.normalize_images = NORMALIZERS[type(vc)](cfg.encoder_type, vc)
+        self.text = build(tc)
+        # Vision first, then text, from one host generator; a tower made on
+        # the device draws from a generator there, seeded alike.
         gen = torch.Generator().manual_seed(seed)
-        self.vision.init_weights_(gen)
-        if isinstance(self.text, DeepseekV2):
-            self.text.init_weights_(torch.Generator(device=dev).manual_seed(seed))
-        else:
-            self.text.init_weights_(gen)
+        for tower in (self.vision, self.text):
+            tower.init_weights_(torch.Generator(device=dev).manual_seed(seed)
+                                if getattr(tower, "made_on_device", False) else gen)
         self.to(dev)
         for name, p in self.named_parameters():
             p.requires_grad_(self.has_trainable_heads and name.startswith(TRAINABLE_HEADS))
@@ -146,9 +157,9 @@ class ItemEncoderModel(nn.Module):
 
     @property
     def has_trainable_heads(self) -> bool:
-        """resnet_sbert and resnet_dsv2lite train their fresh heads; CLIP and
-        SigLIP are wholly frozen."""
-        return self.cfg.encoder_type in HEADED
+        """The pair's ``trainable_heads``: ResNet-18 and MiniLM or DeepSeek-V2
+        train their fresh heads; CLIP and SigLIP are wholly frozen."""
+        return self.cfg.pair.trainable_heads
 
     @property
     def device(self) -> torch.device:
@@ -181,8 +192,6 @@ class ItemEncoderModel(nn.Module):
         """(B, T) token ids -> (B, d) float32 text embeddings. MiniLM and
         DeepSeek-V2 pool over ``attention_mask`` and take all-ones where none
         is given."""
-        if self.cfg.encoder_type in HEADED and attention_mask is None:
-            attention_mask = torch.ones_like(input_ids)
         return self._finish(self.text(input_ids, attention_mask))
 
     def aggregate(self, image_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from outfitx_tpu_torch.models.convert import CONVERTERS
-from outfitx_tpu_torch.models.towers.minilm import convert_minilm
-from outfitx_tpu_torch.models.towers.resnet import convert_resnet18
+from outfitx_tpu_torch.models.towers import TextTowerConfig, VisionTowerConfig
+from outfitx_tpu_torch.models.towers.minilm import MiniLMConfig, convert_minilm
+from outfitx_tpu_torch.models.towers.resnet import ResNet18Config, convert_resnet18
 
 # safetensors dtype names -> little-endian numpy dtypes; BF16 has none and
 # is widened by hand.
@@ -93,6 +94,21 @@ def _head(init_state: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.T
     return {leaf: init_state[f"{prefix}.{leaf}"] for leaf in ("weight", "bias")}
 
 
+# Each tower config's converter from its HF state dict: (config, state
+# dict, init_state) -> the tower's state dict. ResNet-18 and MiniLM take
+# their fresh heads from init_state.
+_LOADERS = {
+    VisionTowerConfig: lambda c, sd, init: CONVERTERS[f"{c.variant}_vision"](
+        sd, n_layers=c.n_layers),
+    TextTowerConfig: lambda c, sd, init: CONVERTERS[f"{c.variant}_text"](
+        sd, n_layers=c.n_layers),
+    ResNet18Config: lambda c, sd, init: convert_resnet18(
+        sd, d_out=c.d_out, init_fc=_head(init, "vision.fc")),
+    MiniLMConfig: lambda c, sd, init: convert_minilm(
+        _strip_prefix(sd, "bert."), n_layers=c.n_layers, init_proj=_head(init, "text.proj")),
+}
+
+
 def load_item_encoder_state_dict(
     encoder,
     checkpoint_dir: str | pathlib.Path,
@@ -112,25 +128,14 @@ def load_item_encoder_state_dict(
         raise FileNotFoundError(f"checkpoint directory {root} does not exist")
     vis_dir = root / "vision" if (root / "vision").is_dir() else root
     txt_dir = root / "text" if (root / "text").is_dir() else root
-    etype = encoder.cfg.encoder_type
-    n_v = getattr(encoder.vision.cfg, "n_layers", None)
-    n_t = encoder.text.cfg.n_layers
-    if etype in ("clip", "siglip"):
-        vision = CONVERTERS[f"{etype}_vision"](read_state_dict(vis_dir), n_layers=n_v)
-        text = CONVERTERS[f"{etype}_text"](read_state_dict(txt_dir), n_layers=n_t)
-    elif etype == "resnet_sbert":
-        if init_state is None:
-            raise ValueError("resnet_sbert needs init_state for its fresh fc and proj heads")
-        vision = convert_resnet18(
-            read_state_dict(vis_dir), d_out=encoder.cfg.dim_per_modality,
-            init_fc=_head(init_state, "vision.fc"),
-        )
-        text = convert_minilm(
-            _strip_prefix(read_state_dict(txt_dir), "bert."), n_layers=n_t,
-            init_proj=_head(init_state, "text.proj"),
-        )
-    else:
-        raise NotImplementedError(etype)
+    loaders = [_LOADERS.get(type(tower.cfg)) for tower in (encoder.vision, encoder.text)]
+    if None in loaders:
+        raise NotImplementedError(encoder.cfg.encoder_type)
+    if encoder.has_trainable_heads and init_state is None:
+        raise ValueError(f"{encoder.cfg.encoder_type} needs init_state for its fresh fc and "
+                         "proj heads")
+    vision = loaders[0](encoder.vision.cfg, read_state_dict(vis_dir), init_state)
+    text = loaders[1](encoder.text.cfg, read_state_dict(txt_dir), init_state)
     return {
         **{f"vision.{k}": v for k, v in vision.items()},
         **{f"text.{k}": v for k, v in text.items()},

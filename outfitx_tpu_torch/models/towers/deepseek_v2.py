@@ -253,6 +253,9 @@ class DecoderLayer(nn.Module):
 
 
 class DeepseekV2(nn.Module):
+    # Made and drawn on the device (``init_weights_``), never on the host.
+    made_on_device = True
+
     def __init__(self, cfg: DeepseekV2Config, device: str | torch.device = "cpu"):
         super().__init__()
         self.cfg = cfg
@@ -298,9 +301,12 @@ class DeepseekV2(nn.Module):
             x = layer(x, pad_mask, cos, sin)
         return self.norm(x)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor]
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        """(B, T) ids and mask -> (B, d_out) in the compute dtype: the mean
-        of the real tokens' final states, then ``proj``."""
+        """(B, T) ids and mask (all-ones if None) -> (B, d_out) in the
+        compute dtype: the mean of the real tokens' final states, then
+        ``proj``."""
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
         pooled = mean_pooling(self.features(input_ids, attention_mask), attention_mask)
         return dense(pooled, self.proj.weight, self.proj.bias)

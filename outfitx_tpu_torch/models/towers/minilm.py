@@ -107,10 +107,12 @@ class MiniLM(nn.Module):
             init_linear_(self.proj, gen)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+        self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         """input_ids (B, T) integers, attention_mask (B, T) with 1 = real
-        token -> (B, d_out) in the compute dtype."""
+        token, all-ones if None -> (B, d_out) in the compute dtype."""
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
         cfg = self.cfg
         t = input_ids.shape[1]
         x = (

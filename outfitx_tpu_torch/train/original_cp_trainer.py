@@ -45,9 +45,6 @@ from outfitx_tpu_torch.train.state import TrainState
 from outfitx_tpu_torch.train.steps import original_cp_eval_step, original_cp_train_step
 
 RAW_KEYS = ("images", "input_ids", "attn")
-# Pairs whose text tower reads Polyvore's texts only through its published
-# tokenizer: without its files the trainer raises, naming them.
-NEEDS_TOKENIZER = ("resnet_dsv2lite",)
 
 
 class RawItemSource:
@@ -327,7 +324,7 @@ class OriginalCPTrainer(Trainer):
             enc_cfg = self.model_cfg.item_encoder
             tokenizer = load_tokenizer(
                 enc_cfg.text_model_name, vocab_size=self.encoder.text_vocab_size,
-                required=enc_cfg.encoder_type in NEEDS_TOKENIZER,
+                required=enc_cfg.pair.published_tokenizer,
             )
             self._source = RawItemSource.from_polyvore(
                 catalog, self.cfg.dataset_dir,

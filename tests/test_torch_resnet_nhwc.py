@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from outfitbench.inputs import resnet18_specs
 from outfitx_tpu_torch.core import trace
-from outfitx_tpu_torch.core.config import ItemEncoderConfig
+from outfitx_tpu_torch.core.config import ENCODER_PAIRS, ItemEncoderConfig
 from outfitx_tpu_torch.data import preprocess
 from outfitx_tpu_torch.models.item_encoder import ItemEncoderModel, resnet_normalizer
 from outfitx_tpu_torch.models.towers import resnet
@@ -153,9 +153,10 @@ def test_resnet_normalizer_rounds_the_float32_normaliser_once(encoder_type, dtyp
 def test_float32_normalizer_is_unchanged(encoder_type):
     """The normaliser CLIP and SigLIP run, bit for bit as it was written
     before the ResNet route had its own."""
-    mean, std = preprocess.STATS[encoder_type]
+    row = ENCODER_PAIRS[encoder_type]
     x = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 3, 8, 8), dtype=np.uint8))
-    mean_t, std_t = (torch.tensor(v, dtype=torch.float32).view(1, 3, 1, 1) for v in (mean, std))
+    mean_t, std_t = (torch.tensor(v, dtype=torch.float32).view(1, 3, 1, 1)
+                     for v in (row.mean, row.std))
     got = preprocess.make_normalizer(encoder_type)(x)
     assert got.dtype == torch.float32 and got.is_contiguous()
     assert torch.equal(got, (x.to(torch.float32) / 255.0 - mean_t) / std_t)
@@ -241,8 +242,8 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_equal_their_plain_versions_on_the_card(card, dtype):
     x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 3, 37, 41), dtype=np.uint8))
-    mean, std = (torch.tensor(v, dtype=torch.float32, device=card)
-                 for v in preprocess.STATS["resnet_sbert"])
+    row = ENCODER_PAIRS["resnet_sbert"]
+    mean, std = (torch.tensor(v, dtype=torch.float32, device=card) for v in (row.mean, row.std))
     x = x.to(card)
     got = resnet_nhwc.normalize(x, mean, std, dtype)
     assert got.is_contiguous(memory_format=CL)
