@@ -13,11 +13,15 @@ ResNet-18's first convolution alone is 9 GB in bfloat16).
 The host gathers one microbatch of raw items at a time, from the epoch's
 order (the JAX trainer's ``_batches``, which gathers a whole optimizer step,
 8.4 GB at the envelope), into one of two pinned buffers, and copies it to
-the card without blocking. The train step takes microbatch i+1 after it has
-queued microbatch i's forward and before it queues i's backward
-(``steps._accumulate``), so the gather of i+1 overlaps the card's forward
-of i; only each step's first gather finds the card idle. Dropout draws from
-the trainer's generator, a fresh stream for each step and microbatch.
+the card without blocking. A large gather is split into contiguous row
+ranges, one for every ``PART_BYTES`` of rows, taken at once by a pool of
+threads (one a core this process may run on, ``MAX_PARTS`` at most) into
+disjoint slices of the buffers: the bytes are those of one ``np.take``.
+The train step takes microbatch i+1 after it has queued microbatch i's
+forward and before it queues i's backward (``steps._accumulate``), so the
+gather of i+1 overlaps the card's forward of i; only each step's first
+gather finds the card idle. Dropout draws from the trainer's generator, a
+fresh stream for each step and microbatch.
 
 Checkpoints hold the JAX trainer's tree, ``{"model": ..., "enc_heads":
 {"fc", "proj"}}``, so either package restores the other's.
@@ -25,6 +29,8 @@ Checkpoints hold the JAX trainer's tree, ``{"model": ..., "enc_heads":
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -46,16 +52,30 @@ from outfitx_tpu_torch.train.steps import original_cp_eval_step, original_cp_tra
 
 RAW_KEYS = ("images", "input_ids", "attn")
 
+# A gather takes one part for every PART_BYTES of its rows (8 MiB: 56
+# images at 224²), on at most MAX_PARTS threads: past 8, the host's memory
+# bandwidth, not the thread count, bounds the copy.
+PART_BYTES = 8 << 20
+MAX_PARTS = 8
+
 
 class RawItemSource:
     """Raw per-item inputs by catalog row: (N+1, 3, S, S) uint8 images and
     (N+1, T) int32 token ids and attention masks, the last row the pad
-    item (all zeros)."""
+    item (all zeros).
+
+    Its pool of gather threads holds one thread a core this process may
+    run on, ``MAX_PARTS`` at most; the pool starts a thread only when a
+    gather first splits, and keeps it for the next."""
 
     def __init__(self, *, image_bank: np.ndarray, input_ids: np.ndarray, attn: np.ndarray):
         self.image_bank = image_bank
         self.input_ids = input_ids
         self.attn = attn
+        self._max_parts = min(len(os.sched_getaffinity(0)), MAX_PARTS)
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            self._max_parts, thread_name_prefix="outfitx-gather"
+        )
 
     @classmethod
     def synthetic(
@@ -74,24 +94,60 @@ class RawItemSource:
         attn[-1] = 0
         return cls(image_bank=images, input_ids=ids, attn=attn)
 
+    @property
+    def banks(self) -> Dict[str, np.ndarray]:
+        return dict(zip(RAW_KEYS, (self.image_bank, self.input_ids, self.attn)))
+
+    def parts(self, n_rows: int) -> int:
+        """The number of parts a gather of ``n_rows`` rows runs in: one for
+        every ``PART_BYTES`` of the rows' bytes, at least one, at most the
+        pool's threads."""
+        row_bytes = sum(bank.nbytes // len(bank) for bank in self.banks.values())
+        return max(1, min(self._max_parts, n_rows * row_bytes // PART_BYTES))
+
     def gather(
         self, rows: np.ndarray, out: Optional[Dict[str, np.ndarray]] = None
     ) -> Dict[str, np.ndarray]:
         """The rows' inputs; into ``out`` (arrays of the right shapes and
-        dtypes) where given. Rows must lie in [0, N]."""
+        dtypes, each written in place and returned) where given. Rows must
+        lie in [0, N]; they are checked before anything is written.
+
+        The rows are cut into ``parts(len(rows))`` contiguous ranges, each
+        taken by a thread of the pool into its own slice of the output
+        (``np.take`` releases the GIL for these dtypes); the call returns
+        when every part has finished, and raises what a part raised. The
+        bytes equal one ``np.take``'s. A gather of one part runs on the
+        caller's thread."""
         rows = np.asarray(rows)
         n = len(self.image_bank)
         if rows.size and (rows.min() < 0 or rows.max() >= n):
             raise IndexError(f"raw item rows must lie in [0, {n}), got "
                              f"{rows.min()}..{rows.max()}")
-        out = out or {}
-        # mode="clip" (the rows are checked above): in its default mode
-        # numpy takes into ``out`` through a temporary, a second copy of
-        # 843 MB a microbatch at the envelope.
-        return {
-            key: np.take(bank, rows, axis=0, out=out.get(key), mode="clip")
-            for key, bank in zip(RAW_KEYS, (self.image_bank, self.input_ids, self.attn))
-        }
+        banks = self.banks
+        if out is None:
+            out = {k: np.empty((*rows.shape, *b.shape[1:]), b.dtype) for k, b in banks.items()}
+
+        def take(lo: int, hi: int) -> None:
+            # mode="clip" (the rows are checked above): in its default mode
+            # numpy takes into ``out`` through a temporary, a second copy of
+            # 843 MB a microbatch at the envelope.
+            for key, bank in banks.items():
+                np.take(bank, rows[lo:hi], axis=0, out=out[key][lo:hi], mode="clip")
+
+        parts = self.parts(len(rows))
+        if parts == 1:
+            take(0, len(rows))
+        else:
+            ends = [len(rows) * i // parts for i in range(parts + 1)]
+            futures = [
+                self._pool.submit(take, lo, hi) for lo, hi in zip(ends, ends[1:]) if hi > lo
+            ]
+            # every part ends before the call returns or raises: none may
+            # still be writing into a buffer that the caller copies or refills
+            concurrent.futures.wait(futures)
+            for f in futures:
+                f.result()
+        return {key: out[key] for key in RAW_KEYS}
 
     @classmethod
     def from_polyvore(
@@ -138,9 +194,12 @@ class RawBatchStager:
     run out of queued work: the train step asks for microbatch i+1 right
     after queueing forward i, whose buffer last held microbatch i-1, copied
     before forward i ran. The small per-outfit arrays (mask, label) go
-    through pinned memory too. ``gather_s`` counts the host's
-    seconds in the gathers, waits included: the stretch of each
-    ``outfitx.gather`` span, inside the call's ``outfitx.stage`` span."""
+    through pinned memory too. A large gather runs split over the
+    source's threads (``RawItemSource.gather``), each part into its own
+    slice of the buffer; its ``outfitx.gather`` span is tagged with the
+    number of parts. ``gather_s`` counts the host's seconds in the
+    gathers, waits included: the stretch of each ``outfitx.gather`` span,
+    inside the call's ``outfitx.stage`` span."""
 
     def __init__(self, source: RawItemSource, device: torch.device):
         self.source = source
@@ -152,8 +211,7 @@ class RawBatchStager:
 
     def _host_buffers(self, slot: int, n: int) -> Dict[str, np.ndarray]:
         bufs = self._slots[slot]
-        banks = (self.source.image_bank, self.source.input_ids, self.source.attn)
-        for key, bank in zip(RAW_KEYS, banks):
+        for key, bank in self.source.banks.items():
             shape = (n, *bank.shape[1:])
             if key not in bufs or tuple(bufs[key].shape) != shape:
                 bufs[key] = torch.empty(
@@ -164,7 +222,7 @@ class RawBatchStager:
     def _gather(self, rows: np.ndarray, slot: Optional[int] = None) -> Dict[str, np.ndarray]:
         """The rows' raw inputs on the host, into pinned ``slot`` after its
         last copy has left it: the stretch ``gather_s`` counts."""
-        with span("outfitx.gather"):
+        with span("outfitx.gather", tag=self.source.parts(len(rows))):
             t0 = time.perf_counter()
             if slot is None:
                 raw = self.source.gather(rows)

@@ -10,7 +10,8 @@ The original-CP step over a lazy generator of ``trainer.microbatch`` is bit
 for bit the step over the same microbatches staged beforehand, dropout on.
 One test needs the card: four microbatches staged through
 ``RawBatchStager``'s two pinned buffers, one ahead behind a busy card, each
-equal to the rows it was asked for. Nothing here imports JAX, so the file
+equal to the rows it was asked for, in a gather of one part and in one
+split over threads. Nothing here imports JAX, so the file
 also runs on the card's machine (``--noconftest``).
 """
 
@@ -228,19 +229,23 @@ def test_original_cp_step_over_a_lazy_generator_is_the_prestaged_step(tmp_path):
 
 # --------------------------------------------------------------- card --
 @pytest.mark.card
-def test_staged_one_ahead_behind_a_busy_card():
+@pytest.mark.parametrize("image_size, b, l", [(64, 16, 4), (224, 64, 8)])
+def test_staged_one_ahead_behind_a_busy_card(image_size, b, l):
     """Four microbatches through the two pinned buffers, each taken while
     the card still sleeps through the forwards queued before it: microbatch
     3 is gathered into the buffer that microbatch 1's copy, queued behind
     microbatch 0's forward, is still to read. Each staged microbatch equals
-    its rows' items. A first step fills the allocators' caches, so that no
-    allocation of the checked step waits for the card."""
+    one ``np.take`` of its rows' items, at 64² (a gather of one part) and at
+    224² (512 images, split over the gather's threads). A first step fills
+    the allocators' caches, so that no allocation of the checked step waits
+    for the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from outfitx_tpu_torch.train.original_cp_trainer import RawBatchStager, RawItemSource
 
     device = torch.device("cuda")
-    source = RawItemSource.synthetic(n_items=300, image_size=64, text_len=12, vocab=120, seed=5)
+    source = RawItemSource.synthetic(
+        n_items=300, image_size=image_size, text_len=12, vocab=120, seed=5)
     pending = []
 
     class Watched(RawBatchStager):
@@ -254,7 +259,7 @@ def test_staged_one_ahead_behind_a_busy_card():
 
     stage = Watched(source, device)
     rng = np.random.default_rng(11)
-    b, l, n = 16, 4, 4
+    n = 4
     rows = [rng.integers(0, 301, (b, l)) for _ in range(n)]
     staged = []
 
@@ -282,8 +287,9 @@ def test_staged_one_ahead_behind_a_busy_card():
     step()
     step()
     assert len(staged) == n and any(pending), pending
+    assert (source.parts(b * l) > 1) == (image_size == 224)  # on a host of two or more cores
     for r, mb in zip(rows, staged):
-        want = source.gather(r.reshape(-1))
-        for k, v in want.items():
+        for k, bank in source.banks.items():
+            v = np.take(bank, r.reshape(-1), axis=0)
             got = mb[k].cpu().numpy()
             np.testing.assert_array_equal(got, v.reshape(b, l, *v.shape[1:]), err_msg=k)
