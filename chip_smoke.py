@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only dsv2   # env, build and the dsv2 phase alone
     python3 chip_smoke.py --only resnet # env, build and the resnet phase alone
+    python3 chip_smoke.py --only kimivl # env, build, the dsv2 and kimivl phases
 
 Each phase's seconds print at the end (``phase_seconds``).
 Phases, each printing one JSON line:
@@ -900,6 +901,124 @@ def phase_dsv2():
     emit({"phase": "dsv2", "masked_mha_fwd_split": cases, "grouped_mm": grouped,
           "timing": {"masked_mha_fwd_split": mla, "grouped_mm": experts},
           "nvidia_smi": nvidia_smi_line()})
+
+
+# -------------------------------------------------------------- kimivl --
+# Kimi-VL-A3B's joint encoder in original-CP (B=32 outfits x 16 items):
+# MoonViT's attention at (512, 16, 256, 72) on the bfloat16 tile route, the
+# decoder's MLA over 64 image tokens and 16 of title on the split route at
+# L = 80, and the sigmoid router, at the encoder's widths.
+KIMIVL_VIT_SHAPE = (512, 16, 256, 72)
+KIMIVL_MLA_SHAPE = (512, 16, 80, 192, 128)
+KIMIVL_VIT_CHECKS = [(KIMIVL_VIT_SHAPE, False), ((7, 3, 100, 72), True), ((5, 2, 256, 24), False),
+                     ((4, 2, 65, 8), True), ((6, 2, 200, 40), False)]
+KIMIVL_SPLIT_CHECKS = [KIMIVL_MLA_SHAPE, (3, 2, 70, 24, 16), (9, 4, 80, 40, 24),
+                       (33, 4, 65, 192, 128)]
+KIMIVL_TOKENS, KIMIVL_BIAS_STD = 40960, 0.05
+
+
+def _joint_inputs(shape, dtype, seed):
+    """q, k, v of the split route over 64 image tokens and a title padded
+    at the tail: the last L - 64 keys drawn 4..16 long (every key at L <=
+    64 a title's, 1..L long)."""
+    b, h, l, dqk, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn((b, h, l, dqk), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, h, l, dv), generator=gen, device="cuda").to(dtype)
+    first = 64 if l > 64 else 0
+    lo = min(first + 4, l)
+    lengths = torch.randint(lo, l + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= lengths[:, None]
+    return q, k, v, pad
+
+
+def phase_kimivl():
+    """masked_mha's bfloat16 tile route at MoonViT's (512, 16, 256, 72) and at
+    other Dh % 16 != 0 above L = 64, and its split route at the joint L =
+    80 (and ragged L up to 80), against mha_reference, bfloat16 (the tile
+    route; float32 too on the split route); ``moe.route_sigmoid`` on the
+    card against its float64 plain version on a mixture's tokens; then each
+    attention at the encoder's shape timed beside its bound, its plain
+    version and SDPA."""
+    import torch.nn.functional as F
+
+    from outfitx_tpu_torch.ops import moe
+    from outfitx_tpu_torch.ops.attention import masked_mha, mha_reference
+
+    vit_cases, split_cases = [], []
+    for si, (shape, causal) in enumerate(KIMIVL_VIT_CHECKS):
+        q, k, v, pad = attention_inputs(shape, torch.bfloat16, 100 + si)
+        if shape == KIMIVL_VIT_SHAPE:
+            pad.zero_()  # MoonViT attends over every patch
+        before = masked_mha.launches
+        got = masked_mha(q, k, v, pad, causal)
+        ref = mha_reference(q, k, v, pad, causal)
+        torch.cuda.synchronize()
+        tag = {"shape": list(shape), "dtype": "bfloat16", "causal": causal}
+        check(masked_mha.launches == before + 1, f"no kernel launch at {tag}")
+        check(bool(torch.isfinite(got.float()).all()), f"non-finite tile output at {tag}")
+        err, ok = _compare(got, ref, torch.bfloat16)
+        vit_cases.append({**tag, "max_abs_err": err, "ok": ok})
+        check(ok, f"masked_mha tile route disagrees with its plain version: {vit_cases[-1]}")
+    for si, shape in enumerate(KIMIVL_SPLIT_CHECKS):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pad = _joint_inputs(shape, dtype, 110 + si)
+            scale = 1.0 / math.sqrt(shape[3])
+            got = masked_mha(q, k, v, pad, True, scale=scale)
+            ref = mha_reference(q, k, v, pad, True, scale)
+            torch.cuda.synchronize()
+            tag = {"shape": list(shape), "dtype": _dtype_name(dtype), "causal": True}
+            check(bool(torch.isfinite(got.float()).all()), f"non-finite split output at {tag}")
+            err, ok = _compare(got, ref, dtype)
+            split_cases.append({**tag, "max_abs_err": err, "ok": ok})
+            check(ok, f"masked_mha split route disagrees with its plain version: {split_cases[-1]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(120)
+    x = torch.randn((KIMIVL_TOKENS, DSV2_D), generator=gen, device="cuda").to(torch.bfloat16)
+    weight = (torch.randn((DSV2_E, DSV2_D), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    bias = torch.randn(DSV2_E, generator=gen, device="cuda") * KIMIVL_BIAS_STD
+    w, idx = moe.route_sigmoid(x, weight, bias, DSV2_K, 2.446)
+    s = torch.sigmoid(x.double() @ weight.double().T)
+    want_idx = torch.topk(s + bias.double(), DSV2_K, dim=-1).indices
+    same = (idx.sort(dim=-1).values == want_idx.sort(dim=-1).values).all(dim=-1)
+    sel = s.gather(-1, idx)
+    want_w = sel / (sel.sum(dim=-1, keepdim=True) + 1e-20) * 2.446
+    w_err = float((w.double() - want_w).abs().max())
+    router = {"tokens": KIMIVL_TOKENS, "sets_equal_share": float(same.double().mean()),
+              "weights_max_abs_err": w_err,
+              "ms": cuda_ms(lambda: moe.route_sigmoid(x, weight, bias, DSV2_K, 2.446), 20)}
+    check(router["sets_equal_share"] > 0.99 and w_err < 1e-5,
+          f"route_sigmoid disagrees with its float64 plain version: {router}")
+
+    timing = {}
+    q, k, v, pad = attention_inputs(KIMIVL_VIT_SHAPE, torch.bfloat16, 130)
+    pad.zero_()
+    bound_ms, bound_by = attention_bound(KIMIVL_VIT_SHAPE, torch.bfloat16)
+    timing["masked_mha_fwd_vit"] = {
+        "shape": list(KIMIVL_VIT_SHAPE), "route": "tile (long_tile<2, 256>)",
+        "ms": cuda_ms(lambda: masked_mha(q, k, v, pad), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad), 2, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+    }
+    b, h, l, dqk, dv = KIMIVL_MLA_SHAPE
+    q, k, v, pad = _joint_inputs(KIMIVL_MLA_SHAPE, torch.bfloat16, 131)
+    scale = dqk ** -0.5
+    nbytes = b * h * l * (2 * dqk + 2 * dv) * 2 + b * l
+    ops = 2 * b * h * l * l * (dqk + dv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    keep = (~pad)[:, None, None, :] & torch.ones(l, l, dtype=torch.bool, device="cuda").tril()
+    timing["masked_mha_fwd_split"] = {
+        "shape": list(KIMIVL_MLA_SHAPE),
+        "ms": cuda_ms(lambda: masked_mha(q, k, v, pad, True, scale=scale), 20),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": cuda_ms(lambda: mha_reference(q, k, v, pad, True, scale), 2, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, scale=scale), 20),
+    }
+    emit({"phase": "kimivl", "masked_mha_fwd_tile": vit_cases, "masked_mha_fwd_split": split_cases,
+          "route_sigmoid": router, "timing": timing, "nvidia_smi": nvidia_smi_line()})
 
 
 # -------------------------------------------------------------- resnet --
@@ -2510,17 +2629,22 @@ def phase_train():
     }
 
 
-def _ocp_counts():
+def _ocp_counts(resnet: bool = False):
+    """The attention and LayerNorm launches since ``_reset_ocp_counts``; with
+    ``resnet`` (the paths that run ResNet-18) the NHWC passes' too."""
     from outfitx_tpu_torch.ops import resnet_nhwc as rn
     from outfitx_tpu_torch.ops.attention import masked_mha
     from outfitx_tpu_torch.ops.layernorm import layer_norm
 
-    return {
+    counts = {
         "masked_mha_fwd": masked_mha.launches,
         "masked_mha_bwd": masked_mha.bwd_launches,
         "layernorm": layer_norm.launches,
-        "resnet_nhwc": rn.normalize.launches + rn.stem_pool.launches + rn.bias_add_relu.launches,
     }
+    if resnet:
+        counts["resnet_nhwc"] = (rn.normalize.launches + rn.stem_pool.launches
+                                 + rn.bias_add_relu.launches)
+    return counts
 
 
 def _reset_ocp_counts():
@@ -2709,7 +2833,7 @@ def phase_original_cp():
         valid = t.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = _ocp_counts()
+        counts = _ocp_counts(resnet=True)
         run_peak = torch.cuda.max_memory_allocated()
         check(t.state.step == OCP_STEPS, f"OriginalCPTrainer took {t.state.step} steps")
         micro = OCP_A * OCP_STEPS
@@ -4733,6 +4857,11 @@ def main() -> int:
         timed("resnet", phase_resnet)
         emit({"phase_seconds": seconds, "total": time.perf_counter() - started})
         return 0
+    if sys.argv[1:3] == ["--only", "kimivl"]:
+        timed("dsv2", phase_dsv2)
+        timed("kimivl", phase_kimivl)
+        emit({"phase_seconds": seconds, "total": time.perf_counter() - started})
+        return 0
     max_err = timed("kernels", phase_kernels)
     engine, q8_engine, serve_launches = timed("serve", phase_serve)
     train_launches = timed("train", phase_train)
@@ -4744,6 +4873,7 @@ def main() -> int:
     cli_launches = timed("cli", phase_cli)
     parallel_launches = timed("parallel", phase_parallel)
     timed("dsv2", phase_dsv2)
+    timed("kimivl", phase_kimivl)
     resnet, max_err["resnet_nhwc"] = timed("resnet", phase_resnet)
     fwd, bwd, towers, layernorm, host = timed("timing", phase_timing, engine, q8_engine)
     rows = [

@@ -41,6 +41,7 @@ class EncoderPair:
 _IMAGENET = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
 _SIGLIP = "Marqo/marqo-fashionSigLIP"
 _CLIP = "patrickjohncyh/fashion-clip"
+_KIMIVL = "moonshotai/Kimi-VL-A3B-Instruct"
 
 # Every pair by its ``encoder_type``, in the order the CLI lists them.
 ENCODER_PAIRS: Dict[str, EncoderPair] = {
@@ -51,6 +52,8 @@ ENCODER_PAIRS: Dict[str, EncoderPair] = {
                                 **_IMAGENET, trainable_heads=True),
     "resnet_dsv2lite": EncoderPair(64, "resnet18", "deepseek-ai/DeepSeek-V2-Lite", **_IMAGENET,
                                    trainable_heads=True, published_tokenizer=True),
+    "kimivl_a3b": EncoderPair(64, _KIMIVL, _KIMIVL, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
+                              trainable_heads=True, published_tokenizer=True),
 }
 
 
@@ -59,7 +62,7 @@ class ItemEncoderConfig:
     """Cross-modal item encoder: ``encoder_type`` names the frozen tower
     pair, a key of ``ENCODER_PAIRS``."""
 
-    encoder_type: str = "siglip"  # {'clip', 'resnet_sbert', 'resnet_dsv2lite', 'siglip'}
+    encoder_type: str = "siglip"  # a key of ENCODER_PAIRS
     aggregation: str = "concat"  # {'concat', 'mean', 'sum'}
     normalize_out: bool = True  # L2-normalize each modality's embedding
     dim_per_modality: int = 768  # 512 clip / 64 resnet_sbert / 768 siglip

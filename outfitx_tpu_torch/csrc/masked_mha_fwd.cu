@@ -12,7 +12,7 @@
 //                                      input dtype
 // Inputs: q, k, v, out contiguous (B, H, L, Dh) of float or bfloat16;
 // pad (B, L) of bytes (torch.bool), nonzero = pad. 1 <= L <= 256; Dh <= 128
-// and a multiple of 8 (16 above L = 64).
+// and a multiple of 8 (of 16 above L = 64 in float32).
 //
 // What bounds it on an H100: bytes. The function reads q, k, v and writes
 // out once: at the set transformer's throughput shape (4096, 16, 17, 96) in
@@ -20,7 +20,8 @@
 // tensor-core time); at the SigLIP vision tower's (2048, 12, 196, 64) it is
 // 2.47 GB, 0.736 ms, against 242 GFLOP (0.24 ms).
 //
-// bfloat16 with Dh a multiple of 16 (every main path) works on tiles of 64
+// bfloat16 with Dh a multiple of 16 (every main path), and at any Dh above
+// L = 64 (MoonViT's Dh = 72 at L = 256), works on tiles of 64
 // query rows of the flat (B H L, Dh) arrays, where each (b, h) slab is L
 // consecutive rows, so one 64-row TMA box (128-byte swizzle) covers several
 // slabs. P V is wgmma with V from shared memory, and the output leaves the
@@ -44,8 +45,9 @@
 //             Key rows past L belong to the next slab or are TMA's zeros:
 //             -inf, so P is exactly 0 there.
 // Rows past the tensor are TMA's zeros and never stored. Q and K columns
-// past Dh are TMA's zeros, so S takes all the columns of its boxes; P V
-// computes 64 or 128 columns and stores Dh. The inputs must be finite: P V
+// past Dh are TMA's zeros, so S takes all the columns of its boxes (the
+// long-tile kernel at Dh 66 to 80 only the first 5 k16 steps); P V computes
+// 64 or 128 columns and stores Dh. The inputs must be finite: P V
 // multiplies P = 0 by the V rows of the tile's other slabs and of the next
 // slab, and 0 * Inf is NaN, so an Inf in one (b, h) slab's V would turn its
 // neighbours' rows to NaN, where the plain version keeps slabs apart.
@@ -82,7 +84,7 @@
 // FMAs (block_gemm.cuh).
 //
 // Queries and keys of another width than the values (DeepSeek-V2's latent
-// attention, Dqk 192 / Dv 128) take a C entry of their own,
+// attention, Dqk 192 / Dv 128, L <= 80) take a C entry of their own,
 // masked_mha_fwd_split, with the scale given: the scalar design with the
 // widths apart (masked_mha_fwd_split_kernel). No other shape reaches it.
 
@@ -129,13 +131,13 @@ inline float softmax_scale(int Dh) {
 // Widen one (L, Dh) slab of T into float shared memory, 16 bytes per load,
 // with a row stride of `stride` floats. A 16-byte chunk never crosses a row,
 // since Dh is a multiple of 8.
-template <typename T>
+template <typename T, int kTh = kThreads>
 __device__ __forceinline__ void load_slab(const T* __restrict__ src,
                                           float* __restrict__ dst, int L,
                                           int Dh, int stride) {
   constexpr int kPer = 16 / sizeof(T);
   const uint4* src4 = reinterpret_cast<const uint4*>(src);
-  for (int c = threadIdx.x; c < L * Dh / kPer; c += kThreads) {
+  for (int c = threadIdx.x; c < L * Dh / kPer; c += kTh) {
     const uint4 raw = src4[c];
     const T* e = reinterpret_cast<const T*>(&raw);
     const int row = c * kPer / Dh;
@@ -265,23 +267,32 @@ cudaError_t launch_short(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- the split route: Dqk != Dv, L <= 64 (DeepSeek-V2's latent attention) ---
+// ---- the split route: Dqk != Dv, L <= 80 (DeepSeek-V2's latent attention) ---
 //
 // Replaces no TPU kernel: the JAX package's attention has one head width.
 // DeepSeek-V2's MLA attends with queries and keys of Dqk = 192 (128 from the
-// latent, 64 rotary) and values of Dv = 128, at the text tower's L = 16,
-// causal with key padding, scaled by softmax_scale * mscale^2 (the caller's
-// `scale`). Bytes bound it: at (1024, 16, 16, 192 / 128) q, k, v and out
+// latent, 64 rotary) and values of Dv = 128, at the text tower's L = 16 and
+// at Kimi-VL's 64 image tokens and 16 of title (L = 80), causal with key
+// padding, scaled by the caller's `scale` (192^-0.5, times mscale^2 under
+// YaRN). Bytes bound it: at (1024, 16, 16, 192 / 128) q, k, v and out
 // are 335 MB, 0.10 ms at 3.35 TB/s, against 2.7 GFLOP. The design is the
-// scalar kernel's above, one block of 128 threads a (b, h), with the
-// widths apart: Q and K widened to float32 in shared memory at rows of
-// Dqk + 1 floats, V at Dv; S summed in order over d (the plain version's
-// _scores order), the same where-set masks, the same warp softmax with P
-// rounded to the input dtype, and P V as scalar FMAs writing 16 bytes a
-// thread. The kernel's name starts with masked_mha_fwd, so a device trace
-// counts it among the attention forward's launches.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// scalar kernel's above, one block a (b, h), with the widths apart: Q and K
+// widened to float32 in shared memory at rows of Dqk + 1 floats, V at Dv;
+// S summed in order over d (the plain version's _scores order), the same
+// where-set masks, the same warp softmax with P rounded to the input dtype
+// (up to three keys a lane: the third, past L = 64, adds 0 below it, so
+// shorter rows sum as before), and P V as scalar FMAs writing 16 bytes a
+// thread. A block has 128 threads up to L = 64; above, its 190 KB of
+// shared memory at L = 80 leave one block an SM, which takes 512 threads
+// (16 warps, not 4, to hide the score loop's shared-memory latency). The
+// kernel's name starts with masked_mha_fwd, so a device trace counts it
+// among the attention forward's launches.
+constexpr int kSplitMaxL = 80;
+constexpr int kSplitKeysPerLane = (kSplitMaxL + 31) / 32;
+constexpr int kSplitLongThreads = 512;  // a block's threads above L = 64
+
+template <typename T, int kTh>
+__global__ void __launch_bounds__(kTh)
     masked_mha_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v,
                                 const uint8_t* __restrict__ pad,
@@ -300,12 +311,12 @@ __global__ void __launch_bounds__(kThreads)
   const size_t base_v = static_cast<size_t>(bh) * L * Dv;
   const uint8_t* prow = pad + static_cast<size_t>(b) * L;
 
-  load_slab(q + base_qk, sq, L, Dqk, qk_stride);
-  load_slab(k + base_qk, sk, L, Dqk, qk_stride);
-  load_slab(v + base_v, sv, L, Dv, Dv);
+  load_slab<T, kTh>(q + base_qk, sq, L, Dqk, qk_stride);
+  load_slab<T, kTh>(k + base_qk, sk, L, Dqk, qk_stride);
+  load_slab<T, kTh>(v + base_v, sv, L, Dv, Dv);
   __syncthreads();
 
-  for (int e = threadIdx.x; e < L * L; e += kThreads) {
+  for (int e = threadIdx.x; e < L * L; e += kTh) {
     const int i = e / L;
     const int j = e - i * L;
     const float* qi = sq + i * qk_stride;
@@ -321,29 +332,35 @@ __global__ void __launch_bounds__(kThreads)
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = warp; i < L; i += kWarps) {
+  for (int i = warp; i < L; i += kTh / 32) {
     float* row = sp + i * L;
-    const bool has0 = lane < L;
-    const bool has1 = lane + 32 < L;
-    const float s0 = has0 ? row[lane] : -INFINITY;
-    const float s1 = has1 ? row[lane + 32] : -INFINITY;
-    float m = fmaxf(s0, s1);
+    float sc[kSplitKeysPerLane];
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kSplitKeysPerLane; ++c) {
+      sc[c] = lane + 32 * c < L ? row[lane + 32 * c] : -INFINITY;
+      m = fmaxf(m, sc[c]);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e0 = has0 ? expf(s0 - m) : 0.f;
-    const float e1 = has1 ? expf(s1 - m) : 0.f;
-    float sum = e0 + e1;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kSplitKeysPerLane; ++c) {
+      sc[c] = lane + 32 * c < L ? expf(sc[c] - m) : 0.f;
+      sum = c == 0 ? sc[0] : sum + sc[c];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (has0) row[lane] = to_f32(from_f32<T>(e0 / sum));
-    if (has1) row[lane + 32] = to_f32(from_f32<T>(e1 / sum));
+#pragma unroll
+    for (int c = 0; c < kSplitKeysPerLane; ++c)
+      if (lane + 32 * c < L) row[lane + 32 * c] = to_f32(from_f32<T>(sc[c] / sum));
   }
   __syncthreads();
 
   const int groups = Dv / kOutVec;
-  for (int e = threadIdx.x; e < L * groups; e += kThreads) {
+  for (int e = threadIdx.x; e < L * groups; e += kTh) {
     const int i = e / groups;
     const int d0 = (e - i * groups) * kOutVec;
     float acc[kOutVec];
@@ -375,25 +392,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const void* pad, void* out, int B, int H, int L,
-                         int Dqk, int Dv, float scale, int causal,
-                         cudaStream_t stream) {
+template <typename T, int kTh>
+cudaError_t launch_split_threads(const void* q, const void* k, const void* v,
+                                 const void* pad, void* out, int B, int H,
+                                 int L, int Dqk, int Dv, float scale,
+                                 int causal, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(L) * Dv +
                        2 * static_cast<size_t>(L) * (Dqk + 1) +
                        static_cast<size_t>(L) * L) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        masked_mha_fwd_split_kernel<T>,
+        masked_mha_fwd_split_kernel<T, kTh>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  masked_mha_fwd_split_kernel<T><<<B * H, kThreads, smem, stream>>>(
+  masked_mha_fwd_split_kernel<T, kTh><<<B * H, kTh, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(pad),
       static_cast<T*>(out), H, L, Dqk, Dv, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         const void* pad, void* out, int B, int H, int L,
+                         int Dqk, int Dv, float scale, int causal,
+                         cudaStream_t stream) {
+  return L > 64 ? launch_split_threads<T, kSplitLongThreads>(
+                      q, k, v, pad, out, B, H, L, Dqk, Dv, scale, causal, stream)
+                : launch_split_threads<T, kThreads>(
+                      q, k, v, pad, out, B, H, L, Dqk, Dv, scale, causal, stream);
 }
 
 // ---- float32, 64 < L <= 256: query-tiled ------------------------------------
@@ -772,8 +800,12 @@ __device__ __forceinline__ float exp_neg(float x) {
 // rq + 8 and in every 8-column group g the columns 8 g + 2 (lane % 4) + {0,
 // 1}: element i is column (i / 4) * 8 + 2 (lane % 4) + i % 2 of row rq +
 // 8 ((i % 4) / 2). A row's other columns lie in the 3 other threads of its
-// quad, so the max and the sum take two shuffles each.
-template <int NB, int NK>
+// quad, so the max and the sum take two shuffles each. S takes KS k16 steps
+// of Q's and K's columns: all 4 NB of the boxes, or fewer where the columns
+// past Dh are TMA's zeros alone (5 at MoonViT's Dh = 72); a count fixed at
+// compile time keeps the wgmma chain unbroken (a test of Dh between the
+// steps costs the route's L > 64 shapes a fifth of their time).
+template <int NB, int NK, int KS = 4 * NB>
 __global__ void __launch_bounds__(128)
     masked_mha_fwd_long_tile_kernel(const __grid_constant__ CUtensorMap map_q,
                                     const __grid_constant__ CUtensorMap map_k,
@@ -825,7 +857,7 @@ __global__ void __launch_bounds__(128)
     float s[NK / 2];
     hg::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4 * NB; ++ks)
+    for (int ks = 0; ks < KS; ++ks)
       hg::wgmma_ss<NK, 0>(
           s, hg::desc_kmajor(sq + (ks / 4) * hg::kBoxBytes + (ks % 4) * 32),
           hg::desc_kmajor(sk + (ks / 4) * NK * 128 + (ks % 4) * 32), ks != 0);
@@ -944,16 +976,16 @@ cudaError_t launch_packed(const CUtensorMap* maps, const void* pad, void* out,
   return cudaGetLastError();
 }
 
-template <int NB, int NK>
+template <int NB, int NK, int KS = 4 * NB>
 cudaError_t launch_long_tile(const CUtensorMap* maps, const void* pad,
                              void* out, int BH, int H, int L, int Dh,
                              int causal, cudaStream_t stream) {
   const int smem = LongTileLayout<NB, NK>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      masked_mha_fwd_long_tile_kernel<NB, NK>,
+      masked_mha_fwd_long_tile_kernel<NB, NK, KS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  masked_mha_fwd_long_tile_kernel<NB, NK><<<BH, 128, smem, stream>>>(
+  masked_mha_fwd_long_tile_kernel<NB, NK, KS><<<BH, 128, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const uint8_t*>(pad),
       static_cast<__nv_bfloat16*>(out), H, L, Dh, softmax_scale(Dh), causal);
   return cudaGetLastError();
@@ -961,7 +993,8 @@ cudaError_t launch_long_tile(const CUtensorMap* maps, const void* pad,
 
 // The tile plan by length: up to L = 32, floor(64 / L) slabs a tile on the
 // packed kernel; above, one slab a tile on the query-tile kernel, with a
-// score block 64 (L <= 64), 128 or 256 keys wide.
+// score block 64 (L <= 64), 128 or 256 keys wide. Above L = 64 a Dh of 66
+// to 80 that is no multiple of 16 (MoonViT's 72) takes S in 5 k16 steps.
 cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
                            const void* pad, void* out, int B, int H, int L,
                            int Dh, int causal, cudaStream_t stream) {
@@ -981,11 +1014,14 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
   if (L <= kTile)
     return wide ? launch_long_tile<2, 64>(maps, pad, out, BH, H, L, Dh, causal, stream)
                 : launch_long_tile<1, 64>(maps, pad, out, BH, H, L, Dh, causal, stream);
+  const bool five = wide && Dh <= 80 && Dh % 16;
   if (L <= 128)
-    return wide ? launch_long_tile<2, 128>(maps, pad, out, BH, H, L, Dh, causal, stream)
-                : launch_long_tile<1, 128>(maps, pad, out, BH, H, L, Dh, causal, stream);
-  return wide ? launch_long_tile<2, 256>(maps, pad, out, BH, H, L, Dh, causal, stream)
-              : launch_long_tile<1, 256>(maps, pad, out, BH, H, L, Dh, causal, stream);
+    return five ? launch_long_tile<2, 128, 5>(maps, pad, out, BH, H, L, Dh, causal, stream)
+           : wide ? launch_long_tile<2, 128>(maps, pad, out, BH, H, L, Dh, causal, stream)
+                  : launch_long_tile<1, 128>(maps, pad, out, BH, H, L, Dh, causal, stream);
+  return five ? launch_long_tile<2, 256, 5>(maps, pad, out, BH, H, L, Dh, causal, stream)
+         : wide ? launch_long_tile<2, 256>(maps, pad, out, BH, H, L, Dh, causal, stream)
+                : launch_long_tile<1, 256>(maps, pad, out, BH, H, L, Dh, causal, stream);
 }
 
 // ---- bfloat16 at Dh = 8, L <= 32: narrow heads ---------------------------------
@@ -1108,17 +1144,17 @@ extern "C" int masked_mha_fwd_smem_bytes(int dh, int keys) {
 }
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. bfloat16 at
-// Dh a multiple of 16 takes the tile kernels, at Dh = 8 and L <= 32 the
-// narrow kernel, the rest the scalar ones. Returns the cudaError_t of the
+// Dh a multiple of 16, or above L = 64, takes the tile kernels, at Dh = 8
+// and L <= 32 the narrow kernel, the rest the scalar ones. Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
                               const void* pad, void* out, int B, int H, int L,
                               int Dh, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || L < 1 || L > 256 || Dh < 8 || Dh > 128 || Dh % 8 ||
-      (L > 64 && Dh % 16) || dtype < 0 || dtype > 1)
+      (L > 64 && Dh % 16 && dtype == 0) || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && Dh % 16 == 0)
+  if (dtype == 1 && (Dh % 16 == 0 || L > 64))
     return static_cast<int>(dispatch_tiles(q, k, v, pad, out, B, H, L, Dh, causal, s));
   if (dtype == 1 && Dh == nm::kDh && L <= nm::kMaxL)
     return static_cast<int>(dispatch_narrow(q, k, v, pad, out, B * H, H, L, causal, s));
@@ -1130,14 +1166,14 @@ extern "C" int masked_mha_fwd(const void* q, const void* k, const void* v,
 }
 
 // C entry of the split route: q, k (B, H, L, Dqk), v and out (B, H, L, Dv),
-// Dqk != Dv, both multiples of 8, Dqk <= 256, Dv <= 128, L <= 64; `scale`
+// Dqk != Dv, both multiples of 8, Dqk <= 256, Dv <= 128, L <= 80; `scale`
 // multiplies S. dtype as above. Returns the launch's cudaError_t.
 extern "C" int masked_mha_fwd_split(const void* q, const void* k, const void* v,
                                     const void* pad, void* out, int B, int H,
                                     int L, int Dqk, int Dv, float scale,
                                     int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || H < 1 || L < 1 || L > 64 || Dqk < 8 || Dqk > 256 || Dqk % 8 ||
+  if (B < 1 || H < 1 || L < 1 || L > kSplitMaxL || Dqk < 8 || Dqk > 256 || Dqk % 8 ||
       Dv < 8 || Dv > 128 || Dv % 8 || Dqk == Dv || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(

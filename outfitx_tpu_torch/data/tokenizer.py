@@ -70,9 +70,12 @@ def load_tokenizer(model_name_or_path: Optional[str], vocab_size: int = 49408,
                 raise FileNotFoundError(
                     f"the tokenizer of {model_name_or_path} is not on this disk: "
                     f"{' and '.join(TOKENIZER_FILES)} under {model_name_or_path} "
-                    f"(or the HF cache), with transformers installed ({e}). Its "
-                    "token ids index the tower's embedding; a hash tokenizer's "
-                    "would not."
+                    f"(or the HF cache), with transformers installed ({e}). "
+                    "AutoTokenizer runs no code that a checkpoint ships, so a "
+                    "tokenizer that brings its own (Kimi-VL's tiktoken.model and "
+                    "tokenization_moonshot.py) needs a loader of its own, which "
+                    "waits until those files are in the repository. Its token "
+                    "ids index the tower's embedding; a hash tokenizer's would not."
                 ) from e
             logger.warning(
                 "tokenizer '%s' is not available locally (%s); using the "

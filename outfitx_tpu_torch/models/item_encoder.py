@@ -9,14 +9,20 @@ only in its two fresh heads, ResNet's ``fc`` and MiniLM's ``proj`` (the JAX
 encoder's ``has_trainable_heads``). ``resnet_dsv2lite`` (no JAX
 counterpart) puts DeepSeek-V2-Lite in MiniLM's place
 (``towers/deepseek_v2.py``), its bfloat16 weights made and drawn on the
-encoder's device, with the same two fresh heads. Outputs are float32;
+encoder's device, with the same two fresh heads. ``kimivl_a3b`` (no JAX
+counterpart) is the first joint pair: MoonViT's image tokens
+(``towers/moonvit.py``) and the item's title go through one pass of
+Kimi-VL-A3B's MoE decoder (``towers/deepseek_v2.py``); the decoder's mean
+over the image positions goes through MoonViT's ``fc``, its mean over the
+title's real tokens through the decoder's ``proj``. Outputs are float32;
 with concat fusion the text half is ``emb[d // 2:]``, which the datasets
 rely on.
 
 A pair is one row of ``PAIR_TOWERS`` (its tower configs) and one of
 ``core/config.py ENCODER_PAIRS`` (its widths, names, image statistics,
-trainable heads and tokenizer rule). A tower's class, and its normaliser,
-follow from its config's type (``TOWERS``, ``NORMALIZERS``).
+trainable heads and tokenizer rule). A tower's class, its normaliser, and
+whether the pair encodes jointly, follow from its config's type (``TOWERS``,
+``NORMALIZERS``, ``JOINT``).
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ from outfitx_tpu_torch.models.towers import (
     VisionTower,
     VisionTowerConfig,
 )
-from outfitx_tpu_torch.models.towers.common import ATTN_ROUTES, MLP_ROUTES
+from outfitx_tpu_torch.models.towers.common import ATTN_ROUTES, MLP_ROUTES, dense
 from outfitx_tpu_torch.models.towers.deepseek_v2 import DeepseekV2, DeepseekV2Config
 from outfitx_tpu_torch.models.towers.minilm import MiniLM, MiniLMConfig
+from outfitx_tpu_torch.models.towers.moonvit import MoonViT, MoonViTConfig
 from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
 from outfitx_tpu_torch.ops import resnet_nhwc
 from outfitx_tpu_torch.utils import aggregate_embeddings
@@ -47,6 +54,15 @@ from outfitx_tpu_torch.utils import aggregate_embeddings
 # that take a gradient.
 TRAINABLE_HEADS = ("vision.fc.", "text.proj.")
 
+
+def kimivl_decoder(d: int) -> DeepseekV2Config:
+    """Kimi-VL-A3B-Instruct's ``text_config`` (DeepSeek-V3's layout) as the
+    joint pair's decoder, its ``proj`` at width ``d``."""
+    return DeepseekV2Config(
+        vocab_size=163840, max_len=131072, d_ffn=11264, routed_scaling=2.446, rms_eps=1e-5,
+        rope_theta=800000.0, rope_factor=1.0, scoring="sigmoid", d_out=d)
+
+
 # Each pair's towers at its width per modality: (vision config, text config).
 # Its other facts are its row of ``ENCODER_PAIRS``.
 PAIR_TOWERS = {
@@ -54,6 +70,7 @@ PAIR_TOWERS = {
     "clip": lambda d: (VisionTowerConfig.clip_b32(), TextTowerConfig.clip_b()),
     "resnet_sbert": lambda d: (ResNet18Config(d_out=d), MiniLMConfig(d_out=d)),
     "resnet_dsv2lite": lambda d: (ResNet18Config(d_out=d), DeepseekV2Config(d_out=d)),
+    "kimivl_a3b": lambda d: (MoonViTConfig(d_out=d), kimivl_decoder(d)),
 }
 
 # The tower each config builds, and which of the encoder's arguments its
@@ -65,7 +82,12 @@ TOWERS = {
     ResNet18Config: (ResNet18, ()),
     MiniLMConfig: (MiniLM, ()),
     DeepseekV2Config: (DeepseekV2, ("device",)),
+    MoonViTConfig: (MoonViT, ("device",)),
 }
+
+# Vision configs whose tower hands the text tower image tokens: one decoder
+# pass over the image and the title encodes an item.
+JOINT = (MoonViTConfig,)
 
 
 def tower_configs(cfg: ItemEncoderConfig):
@@ -91,6 +113,7 @@ def resnet_normalizer(encoder_type: str, dtype: torch.dtype):
 NORMALIZERS = {
     VisionTowerConfig: lambda etype, vc: make_normalizer(etype),
     ResNet18Config: lambda etype, vc: resnet_normalizer(etype, dtypes.resolve(vc.compute_dtype)),
+    MoonViTConfig: lambda etype, vc: make_normalizer(etype),
 }
 
 
@@ -99,11 +122,11 @@ class ItemEncoderModel(nn.Module):
     distributions (not their numbers), until a state dict is loaded (see
     ``models/from_jax.py item_encoder_state_dict_from_jax`` and
     ``models/pretrained.py``). ``attn`` and ``mlp`` choose the CLIP and
-    SigLIP towers' formulations (``towers/common.py``); ResNet-18, MiniLM
-    and DeepSeek-V2 have one formulation each and take neither.
-    DeepSeek-V2 is made on ``device`` and drawn there from a generator on
-    that device seeded with ``seed``; the other towers are drawn on the
-    host and moved."""
+    SigLIP towers' formulations (``towers/common.py``); ResNet-18, MiniLM,
+    DeepSeek-V2 and MoonViT have one formulation each and take neither.
+    DeepSeek-V2 and MoonViT are made on ``device`` and drawn there from a
+    generator on that device seeded with ``seed``; the other towers are
+    drawn on the host and moved."""
 
     def __init__(
         self,
@@ -142,6 +165,7 @@ class ItemEncoderModel(nn.Module):
             return cls(tower_cfg, **{k: given[k] for k in takes})
 
         self.vision = build(vc)
+        self.joint = isinstance(vc, JOINT)
         self.normalize_images = NORMALIZERS[type(vc)](cfg.encoder_type, vc)
         self.text = build(tc)
         # Vision first, then text, from one host generator; a tower made on
@@ -179,9 +203,30 @@ class ItemEncoderModel(nn.Module):
             emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
         return emb
 
+    def _image_tokens(self, images_uint8: torch.Tensor) -> torch.Tensor:
+        """A joint pair's image tokens in the decoder's width: the
+        normaliser and MoonViT inside the span ``outfitx.vision``, the merge
+        and the projector inside ``outfitx.project``."""
+        with trace.span("outfitx.vision"):
+            states = self.vision.features(self.normalize_images(images_uint8))
+        with trace.span("outfitx.project"):
+            return self.vision.project(states)
+
+    def _joint(self, images_uint8=None, input_ids=None, attention_mask=None):
+        """One decoder pass over [image tokens; title] -> (image half
+        through ``vision.fc``, title half through ``text.proj``), None for a
+        part not given."""
+        tokens = None if images_uint8 is None else self._image_tokens(images_uint8)
+        img, txt = self.text.pooled(tokens, input_ids, attention_mask)
+        return (None if img is None else self.vision.head(img),
+                None if txt is None else dense(txt, self.text.proj.weight, self.text.proj.bias))
+
     def encode_images(self, images_uint8: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) uint8 -> (B, d) float32 image embeddings, inside the
-        span ``outfitx.vision``."""
+        span ``outfitx.vision`` (a joint pair: the decoder over the image
+        tokens alone)."""
+        if self.joint:
+            return self._finish(self._joint(images_uint8)[0])
         with trace.span("outfitx.vision"):
             return self._finish(self.vision(self.normalize_images(images_uint8)))
 
@@ -191,7 +236,7 @@ class ItemEncoderModel(nn.Module):
     ) -> torch.Tensor:
         """(B, T) token ids -> (B, d) float32 text embeddings. MiniLM and
         DeepSeek-V2 pool over ``attention_mask`` and take all-ones where none
-        is given."""
+        is given (a joint pair: the decoder over the title alone)."""
         return self._finish(self.text(input_ids, attention_mask))
 
     def aggregate(self, image_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
@@ -201,7 +246,11 @@ class ItemEncoderModel(nn.Module):
         self, images_uint8: torch.Tensor, input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """The full per-item embedding (B, d_embed), float32."""
+        """The full per-item embedding (B, d_embed), float32; a joint pair
+        in one decoder pass an item."""
+        if self.joint:
+            img, txt = self._joint(images_uint8, input_ids, attention_mask)
+            return self.aggregate(self._finish(img), self._finish(txt))
         img = self.encode_images(images_uint8)
         txt = self.encode_texts(input_ids, attention_mask)
         return self.aggregate(img, txt)

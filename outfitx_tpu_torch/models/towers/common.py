@@ -23,12 +23,17 @@ stacked ``(d, 3, d)`` / ``(3, d)`` projection and the (in, out) matrices, in
 the compute dtype) are built once per dtype and device and kept; loading a
 state dict drops them. The JAX ``xla``, padded ``pallas`` and ``flash``
 routes are TPU formulations of the same function and have no counterpart.
+
+MoonViT (``towers/moonvit.py``, no JAX counterpart) runs on the same
+blocks: its weights are made on the card in bfloat16 (``dtype`` and
+``device``), and a ``rotary`` function turns each layer's q and k, (B, H,
+S, Dh), before the attention.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,38 +69,41 @@ def init_linear_(lin: nn.Linear, gen: torch.Generator) -> None:
 class LayerNorm(nn.Module):
     """Scale and bias of a LayerNorm over the last axis, with its eps."""
 
-    def __init__(self, d: int, eps: float):
+    def __init__(self, d: int, eps: float, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(d))
-        self.bias = nn.Parameter(torch.zeros(d))
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, eps=self.eps)
 
 
 class TowerLayer(nn.Module):
-    def __init__(self, d: int, d_mlp: int, ln_eps: float):
+    def __init__(self, d: int, d_mlp: int, ln_eps: float, dtype=None, device=None):
         super().__init__()
-        self.ln1 = LayerNorm(d, ln_eps)
-        self.ln2 = LayerNorm(d, ln_eps)
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d)
-        self.v = nn.Linear(d, d)
-        self.o = nn.Linear(d, d)
-        self.fc1 = nn.Linear(d, d_mlp)
-        self.fc2 = nn.Linear(d_mlp, d)
+        lin = dict(dtype=dtype, device=device)
+        self.ln1 = LayerNorm(d, ln_eps, device)
+        self.ln2 = LayerNorm(d, ln_eps, device)
+        self.q = nn.Linear(d, d, **lin)
+        self.k = nn.Linear(d, d, **lin)
+        self.v = nn.Linear(d, d, **lin)
+        self.o = nn.Linear(d, d, **lin)
+        self.fc1 = nn.Linear(d, d_mlp, **lin)
+        self.fc2 = nn.Linear(d_mlp, d, **lin)
 
     def linears(self):
         return (self.q, self.k, self.v, self.o, self.fc1, self.fc2)
 
 
 class TowerEncoder(nn.Module):
-    """``n_layers`` pre-LN blocks over (B, S, d) activations."""
+    """``n_layers`` pre-LN blocks over (B, S, d) activations; the linears
+    in ``dtype`` on ``device`` where given (float32 on the host if not), the
+    LayerNorms in float32."""
 
     def __init__(
         self, *, d: int, n_heads: int, d_mlp: int, n_layers: int, act: str,
-        ln_eps: float = 1e-5, attn: str = "mha", mlp: str = "plain",
+        ln_eps: float = 1e-5, attn: str = "mha", mlp: str = "plain", dtype=None, device=None,
     ):
         super().__init__()
         if attn not in ATTN_ROUTES:
@@ -109,7 +117,7 @@ class TowerEncoder(nn.Module):
         self.attn = attn
         self.mlp = mlp
         self.layers = nn.ModuleList(
-            TowerLayer(d, d_mlp, ln_eps) for _ in range(n_layers)
+            TowerLayer(d, d_mlp, ln_eps, dtype, device) for _ in range(n_layers)
         )
         self._fused: Dict[Tuple[str, torch.dtype, torch.device], list] = {}
         self.register_load_state_dict_post_hook(
@@ -164,16 +172,17 @@ class TowerEncoder(nn.Module):
     # ------------------------------------------------------------ apply --
     def forward(
         self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
-        causal: bool = False,
+        causal: bool = False, rotary: Optional[Callable] = None,
     ) -> torch.Tensor:
-        """x (B, S, d); pad_mask (B, S) bool, True = pad; returns (B, S, d)
-        in x's dtype."""
+        """x (B, S, d); pad_mask (B, S) bool, True = pad; ``rotary`` maps q
+        and k (B, H, S, Dh) to their turned copies (the block route takes
+        none); returns (B, S, d) in x's dtype."""
         b, s, d = x.shape
         h_n = self.n_heads
         if pad_mask is None:
             pad_mask = torch.zeros((b, s), dtype=torch.bool, device=x.device)
         pad_mask = pad_mask.contiguous()
-        use_block = self.takes_block(s, causal)
+        use_block = self.takes_block(s, causal) and rotary is None
         block_w = self._block_weights(x.dtype, x.device) if use_block else None
         mlp_w = self._mlp_weights(x.dtype, x.device) if self.mlp == "fused" else None
         act_fn = TOWER_ACTIVATIONS[self.act]
@@ -195,6 +204,8 @@ class TowerEncoder(nn.Module):
                     heads(dense(y, lin.weight, lin.bias))
                     for lin in (layer.q, layer.k, layer.v)
                 )
+                if rotary is not None:
+                    q, k = rotary(q), rotary(k)
                 o = masked_mha(q, k, v, pad_mask, causal)
                 o = o.transpose(1, 2).reshape(b, s, d)
                 h = h + dense(o, layer.o.weight, layer.o.bias)

@@ -1,5 +1,6 @@
 """DeepSeek-V2-Lite as the frozen text tower of the ``resnet_dsv2lite`` item
-encoder.
+encoder, and the same layout as the decoder of the ``kimivl_a3b`` joint
+encoder (Kimi-VL-A3B's Moonlight decoder, DeepSeek-V3's layout).
 
 The architecture of deepseek-ai/DeepSeek-V2-Lite's ``config.json`` (no TPU
 counterpart: the JAX package has no such tower): an embedding of 102,400 x
@@ -36,6 +37,17 @@ host or in float32; a state dict loads in place, a tensor at a time. The
 residual stream is bfloat16; each RMSNorm, the rotary product and the
 mixture's combine run in float32 and round once. Only ``proj`` trains; it
 is float32, as the other towers' heads.
+
+Kimi-VL-A3B's decoder (moonshotai/Kimi-VL-A3B-Instruct's ``text_config``)
+differs by numbers and by two switches of the config: ``scoring``
+"sigmoid" (the mixture's router is ``moe.route_sigmoid``: experts by
+sigmoid score plus a float32 correction bias ``e_score_correction_bias``,
+weighted by the score alone, normalised, times 2.446) and ``rope_factor``
+1 (``rope_scaling`` null: plain RoPE at base 800,000, S scaled by
+192^-0.5). Widths there: a dense SwiGLU of 11,264, vocabulary 163,840,
+RMSNorm eps 1e-5. A joint pair hands ``features`` its image tokens as a
+``prefix`` ahead of the title's embeddings, one causal pass over both, and
+``pooled`` means the two position ranges apart.
 
 Spans (``core/trace.py``): ``outfitx.mla`` around each layer's attention
 block, ``outfitx.moe`` around each mixture, with ``outfitx.route`` (the
@@ -91,10 +103,21 @@ class DeepseekV2Config:
     init_std: float = 0.02
     d_out: int = 64  # the fresh proj head's width (dim_per_modality)
     compute_dtype: str = "bfloat16"  # the frozen weights' and the compute's
+    # The mixture's router: "softmax" (greedy top-k of the softmax, weights
+    # unnormalised) or "sigmoid" (top-k of sigmoid + correction bias, the
+    # weights normalised); ``routed_scaling`` multiplies either's weights.
+    scoring: str = "softmax"
+
+    def __post_init__(self):
+        if self.scoring not in ROUTERS:
+            raise ValueError(f"scoring must be one of {ROUTERS}, got {self.scoring!r}")
 
     @property
     def qk_dim(self) -> int:
         return self.qk_nope_dim + self.qk_rope_dim
+
+
+ROUTERS = ("softmax", "sigmoid")
 
 
 def yarn_mscale(scale: float, m: float) -> float:
@@ -109,7 +132,8 @@ def softmax_scale(cfg: DeepseekV2Config) -> float:
 def yarn_inv_freq(cfg: DeepseekV2Config) -> torch.Tensor:
     """(rope_dim / 2,) float32: base^(-2i/dim) where the ramp's mask is 1,
     a factor-th of it where 0, between the two on the ramp from floor(d(beta_fast))
-    to ceil(d(beta_slow)), d(r) = dim ln(original / (2 pi r)) / (2 ln base)."""
+    to ceil(d(beta_slow)), d(r) = dim ln(original / (2 pi r)) / (2 ln base).
+    A factor of 1 (``rope_scaling`` null) leaves base^(-2i/dim): plain RoPE."""
     dim, base = cfg.qk_rope_dim, cfg.rope_theta
 
     def corr(r):
@@ -195,14 +219,21 @@ class MLA(nn.Module):
 
 
 class Router(nn.Module):
-    """The mixture's gate: ``moe.route`` over a weight (E, d)."""
+    """The mixture's gate over a weight (E, d): ``moe.route``, or with
+    ``scoring`` "sigmoid" ``moe.route_sigmoid`` with its float32
+    correction bias (E,)."""
 
     def __init__(self, cfg: DeepseekV2Config, dtype, device):
         super().__init__()
-        self.top_k, self.scaling = cfg.top_k, cfg.routed_scaling
+        self.top_k, self.scaling, self.scoring = cfg.top_k, cfg.routed_scaling, cfg.scoring
         self.weight = _param((cfg.n_experts, cfg.d_model), dtype, device)
+        if cfg.scoring == "sigmoid":
+            self.e_score_correction_bias = _param((cfg.n_experts,), torch.float32, device)
 
     def forward(self, x):
+        if self.scoring == "sigmoid":
+            return moe.route_sigmoid(x, self.weight, self.e_score_correction_bias, self.top_k,
+                                     self.scaling)
         return moe.route(x, self.weight, self.top_k, self.scaling)
 
 
@@ -269,9 +300,9 @@ class DeepseekV2(nn.Module):
             cfg.rope_factor, cfg.mscale_all_dim)
 
     def init_weights_(self, gen: torch.Generator) -> None:
-        """N(0, init_std) matrices and embedding, RMSNorm weights 1, the
-        head uniform(+-1/sqrt(d_in)), drawn on the tower's device from
-        ``gen`` (a generator on that device)."""
+        """N(0, init_std) matrices, embedding and router biases, RMSNorm
+        weights 1, the head uniform(+-1/sqrt(d_in)), drawn on the tower's
+        device from ``gen`` (a generator on that device)."""
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.startswith("proj."):
@@ -289,24 +320,49 @@ class DeepseekV2(nn.Module):
         emb = torch.cat([freqs, freqs], dim=-1)
         return emb.cos() * self.cos_sin_scale, emb.sin() * self.cos_sin_scale
 
-    def features(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """(B, T) ids and mask (1 = real token) -> (B, T, d) final states."""
-        t = input_ids.shape[1]
+    def features(self, input_ids: Optional[torch.Tensor], attention_mask: Optional[torch.Tensor],
+                 prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T) ids and mask (1 = real token) -> (B, P + T, d) final
+        states. ``prefix`` (B, P, d), where given, stands ahead of the ids'
+        embeddings in the compute dtype and is never padding (a joint
+        pair's image tokens); ids of None run the prefix alone. Positions
+        run 0 .. P + T - 1."""
+        parts, pads = [], []
+        if prefix is not None:
+            parts.append(prefix.to(self.embed.dtype))
+            pads.append(torch.zeros(prefix.shape[:2], dtype=torch.bool, device=prefix.device))
+        if input_ids is not None:
+            parts.append(F.embedding(input_ids.long(), self.embed))
+            pads.append(attention_mask == 0)
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        pad_mask = (pads[0] if len(pads) == 1 else torch.cat(pads, dim=1)).contiguous()
+        t = x.shape[1]
         if t > self.cfg.max_len:
             raise ValueError(f"{t} tokens exceed max_len {self.cfg.max_len}")
-        x = F.embedding(input_ids.long(), self.embed)
-        pad_mask = (attention_mask == 0).contiguous()
         cos, sin = self.rope_tables(t)
         for layer in self.layers:
             x = layer(x, pad_mask, cos, sin)
         return self.norm(x)
+
+    def pooled(self, prefix: Optional[torch.Tensor] = None,
+               input_ids: Optional[torch.Tensor] = None,
+               attention_mask: Optional[torch.Tensor] = None):
+        """One pass over [prefix; ids] -> (the mean of the prefix's final
+        states, the mean of the ids' real tokens' final states), each (B, d)
+        in the compute dtype, None for a part not given; a mask of None is
+        all-ones."""
+        if input_ids is not None and attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        h = self.features(input_ids, attention_mask, prefix)
+        p = 0 if prefix is None else prefix.shape[1]
+        head = h[:, :p].mean(dim=1) if p else None
+        tail = mean_pooling(h[:, p:], attention_mask) if input_ids is not None else None
+        return head, tail
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """(B, T) ids and mask (all-ones if None) -> (B, d_out) in the
         compute dtype: the mean of the real tokens' final states, then
         ``proj``."""
-        if attention_mask is None:
-            attention_mask = torch.ones_like(input_ids)
-        pooled = mean_pooling(self.features(input_ids, attention_mask), attention_mask)
-        return dense(pooled, self.proj.weight, self.proj.bias)
+        return dense(self.pooled(None, input_ids, attention_mask)[1], self.proj.weight,
+                     self.proj.bias)

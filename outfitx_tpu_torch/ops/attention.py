@@ -3,8 +3,9 @@
 Inputs are (B, H, L, Dh) with a (B, L) bool key-padding mask (True = pad).
 Outfits are at most 16 items + 1 prefix token, so the set transformer's
 attention runs over tiny sequences; the frozen towers call the forward at
-50, 77 (causal) and 196 tokens. The forward takes L up to 256; the towers
-take no gradient, so the backward kernel keeps L <= 64.
+50, 77 (causal), 196 and 256 tokens (MoonViT, Dh = 72). The forward takes L
+up to 256; the towers take no gradient, so the backward kernel keeps L <=
+64.
 
 ``masked_mha`` is differentiable through ``MaskedMHA``, a
 ``torch.autograd.Function`` that saves q, k, v and the mask (the JAX custom
@@ -22,7 +23,8 @@ rows; each C entry cuts a call into tiles from (L, Dh, dtype). The forward
 packs ``64 // L`` slabs into a tile up to L = 32 (the set transformer), each
 row seeing only its own slab's keys, S summed in order over Dh on the CUDA
 cores as ``mha_reference`` sums it; above, one slab's query tiles against
-all of its keys at once, on the tensor cores. The backward packs ``64 //
+all of its keys at once, on the tensor cores; there Dh may be any multiple
+of 8 (MoonViT's 72: the columns past Dh are the tile loads' zeros). The backward packs ``64 //
 L`` slabs a tile at every L <= 64 and repeats the plain version's float32
 arithmetic up to the roundings of P and dS (S and dP in order over Dh, the
 softmax's and the row sum's tree, ``_tree_sum``), then takes dV, dQ and dK
@@ -34,8 +36,9 @@ that round once on the tensor cores. float32 (the correctness route) and
 bfloat16 at other Dh run the scalar kernels.
 
 Queries and keys of another width than the values (DeepSeek-V2's latent
-attention: Dqk 192, Dv 128, L = 16, causal) take the split route, forward
-only: ``masked_mha_fwd_split`` in the same source, with the caller's
+attention: Dqk 192, Dv 128, causal, at L = 16 over a title and at L = 80
+over Kimi-VL's image tokens and title) take the split route, L <= 80,
+forward only: ``masked_mha_fwd_split`` in the same source, with the caller's
 ``scale`` (MLA scales S by its YaRN factor too). Only Dqk != Dv reaches it,
 and only there may a scale be given; its towers take no gradient, so it
 has no backward.
@@ -55,9 +58,10 @@ _FWD = "masked_mha_fwd"
 _BWD = "masked_mha_bwd"
 _DTYPE_CODES = _launch.DTYPE_CODES
 MAX_L = 256  # forward
-SHORT_L = 64  # backward; above it the forward wants Dh a multiple of 16
+SHORT_L = 64  # backward; above it the float32 forward wants Dh a multiple of 16
 MAX_DH = 128
 MAX_DQK = 256  # the split route's queries and keys
+SPLIT_MAX_L = 80  # the split route: a (b, h)'s Q, K, V and S in shared memory
 _SPLIT = "masked_mha_fwd_split"
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SPLIT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -171,10 +175,10 @@ def _check(q, k, v, pad_mask, g=None):
             f"1 <= L <= {max_l} and Dh a multiple of 8 up to {MAX_DH}, got "
             f"L={l}, Dh={dh}"
         )
-    if l > SHORT_L and dh % 16:
+    if l > SHORT_L and dh % 16 and q.dtype == torch.float32:
         raise ValueError(
-            f"masked_mha kernel above L={SHORT_L} takes Dh a multiple of 16, "
-            f"got L={l}, Dh={dh}"
+            f"masked_mha float32 kernel above L={SHORT_L} takes Dh a multiple "
+            f"of 16, got L={l}, Dh={dh}"
         )
     tensors = {"q": q, **same}
     for name, t in {**tensors, "pad_mask": pad_mask}.items():
@@ -209,10 +213,10 @@ def _check_split(q, k, v, pad_mask):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, _, l, dqk = q.shape
     dv = v.shape[-1]
-    if not 1 <= l <= SHORT_L or not 8 <= dqk <= MAX_DQK or dqk % 8 \
+    if not 1 <= l <= SPLIT_MAX_L or not 8 <= dqk <= MAX_DQK or dqk % 8 \
             or not 8 <= dv <= MAX_DH or dv % 8:
         raise ValueError(
-            f"masked_mha split route takes 1 <= L <= {SHORT_L}, Dqk a multiple "
+            f"masked_mha split route takes 1 <= L <= {SPLIT_MAX_L}, Dqk a multiple "
             f"of 8 up to {MAX_DQK} and Dv a multiple of 8 up to {MAX_DH}, got "
             f"L={l}, Dqk={dqk}, Dv={dv}")
     if pad_mask.dtype != torch.bool or tuple(pad_mask.shape) != (b, l) \

@@ -5,7 +5,11 @@ DeepSeek-V2's routed layer (``models/towers/deepseek_v2.py``) replaces no
 TPU kernel: the JAX package has no mixture of experts. Its parts here:
 
 - ``route``: softmax over the router's logits in float32, greedy top-k,
-  the weights left unnormalised and scaled by a factor;
+  the weights left unnormalised and scaled by a factor (DeepSeek-V2);
+- ``route_sigmoid``: sigmoid scores in float32, the top-k of the scores
+  plus a correction bias, the weights the scores alone at those experts,
+  normalised and scaled (DeepSeek-V3's ``noaux_tc`` in one group, the
+  Kimi-VL decoder's router);
 - ``permute``: the (token, slot) pairs sorted by expert (a stable sort, so
   a token's pairs keep token order inside an expert), each expert's count
   and the running ends of the groups, all on the device: nothing reads a
@@ -47,6 +51,20 @@ def route(x: torch.Tensor, weight: torch.Tensor, top_k: int,
     if scaling != 1.0:
         w = w * scaling
     return w, idx
+
+
+def route_sigmoid(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, top_k: int,
+                  scaling: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (N, d), the router's weight (E, d) and correction bias (E,) ->
+    (weights (N, k) float32, experts (N, k) int64): s = sigmoid(x W^T) in
+    float32; the experts are the k largest of s + bias, in descending
+    order; their weights are s there (without the bias), over their sum
+    plus 1e-20, times ``scaling``. One group of experts: DeepSeek-V3's
+    group-limited choice with ``n_group`` 1 picks among all of them."""
+    scores = torch.sigmoid(F.linear(x.float(), weight.float()))
+    idx = torch.topk(scores + bias.float(), top_k, dim=-1).indices
+    w = scores.gather(-1, idx)
+    return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scaling, idx
 
 
 def permute(idx: torch.Tensor, n_experts: int):

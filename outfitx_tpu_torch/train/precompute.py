@@ -108,9 +108,14 @@ class PrecomputeRunner:
             output_dir or pathlib.Path(cfg.dataset_dir) / "precomputed_embeddings"
         )
         self.synthetic_items = synthetic_items
+        # Read from Polyvore, a pair whose tower takes only its published
+        # tokenizer's ids raises, naming its files, where they are missing;
+        # synthetic items need none.
+        pair = self.model_cfg.item_encoder.pair
         self.tokenizer = load_tokenizer(
             self.model_cfg.item_encoder.text_model_name,
             vocab_size=encoder.text_vocab_size,
+            required=pair.published_tokenizer and not synthetic_items,
         )
 
     # ------------------------------------------------------------- data --

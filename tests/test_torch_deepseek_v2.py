@@ -199,7 +199,7 @@ def test_split_route_takes_only_dqk_unlike_dv(monkeypatch):
 
 
 @pytest.mark.parametrize("shape, error", [
-    ((2, 2, 65, 24, 16), "L <= 64"),
+    ((2, 2, 81, 24, 16), "L <= 80"),
     ((2, 2, 9, 264, 16), "up to 256"),
     ((2, 2, 9, 24, 136), "up to 128"),
     ((2, 2, 9, 20, 16), "multiple"),

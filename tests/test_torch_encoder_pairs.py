@@ -5,8 +5,8 @@ For every pair: ``for_type`` is its row; the encoder builds its tower
 classes, trains its heads only where the row says so, and normalises images
 with the row's statistics; the text towers that pool over a mask take
 all-ones where none is given; the weights are those of the hand-written
-order (vision then text from one host generator, DeepSeek-V2 from a
-generator on its device seeded alike). The CLI's ``--encoder`` lists the
+order (vision then text from one host generator, DeepSeek-V2 and MoonViT
+from a generator on their device seeded alike). The CLI's ``--encoder`` lists the
 table's keys. Nothing here imports JAX.
 """
 
@@ -32,6 +32,7 @@ from outfitx_tpu_torch.models.towers import (
 )
 from outfitx_tpu_torch.models.towers.deepseek_v2 import DeepseekV2, DeepseekV2Config
 from outfitx_tpu_torch.models.towers.minilm import MiniLM, MiniLMConfig
+from outfitx_tpu_torch.models.towers.moonvit import MoonViT, MoonViTConfig
 from outfitx_tpu_torch.models.towers.resnet import ResNet18, ResNet18Config
 
 torch.set_num_threads(1)
@@ -51,6 +52,8 @@ TINY = {
                            qk_nope_dim=8, qk_rope_dim=8, v_dim=8, kv_lora_rank=16, d_ffn=48,
                            d_expert=16, n_experts=4, top_k=2, n_shared=1, first_dense=1,
                            d_out=DIM),
+    MoonViTConfig: dict(image_size=32, patch_size=8, d_model=DIM, n_heads=2, d_mlp=32,
+                        n_layers=1, pos_grid=8, d_text=32, d_out=DIM),
 }
 # Each pair's tower classes.
 CLASSES = {
@@ -58,6 +61,7 @@ CLASSES = {
     "clip": (VisionTower, TextTower),
     "resnet_sbert": (ResNet18, MiniLM),
     "resnet_dsv2lite": (ResNet18, DeepseekV2),
+    "kimivl_a3b": (MoonViT, DeepseekV2),
 }
 PAIRS = list(ENCODER_PAIRS)
 
@@ -119,16 +123,17 @@ def test_the_encoder_follows_the_row(name):
 @pytest.mark.parametrize("name", PAIRS)
 def test_weights_are_drawn_in_the_hand_written_order(name, seed):
     """Vision ``init_weights_`` first, then text, from one host generator;
-    DeepSeek-V2 is made on the device and drawn from a generator there,
-    seeded alike. Every tensor bit-equal."""
+    DeepSeek-V2 and MoonViT are made on the device and drawn from a
+    generator there, seeded alike. Every tensor bit-equal."""
     cfg, vc, tc = tiny(name)
-    vision_cls, text_cls = CLASSES[name]
-    vision = vision_cls(vc)
-    text = text_cls(tc, device="cpu") if text_cls is DeepseekV2 else text_cls(tc)
     gen = torch.Generator().manual_seed(seed)
-    vision.init_weights_(gen)
-    text.init_weights_(torch.Generator(device="cpu").manual_seed(seed)
-                       if text_cls is DeepseekV2 else gen)
+    towers = []
+    for cls, c in zip(CLASSES[name], (vc, tc)):
+        on_device = getattr(cls, "made_on_device", False)
+        tower = cls(c, device="cpu") if on_device else cls(c)
+        tower.init_weights_(torch.Generator(device="cpu").manual_seed(seed) if on_device else gen)
+        towers.append(tower)
+    vision, text = towers
     want = {**{f"vision.{k}": v for k, v in vision.state_dict().items()},
             **{f"text.{k}": v for k, v in text.state_dict().items()}}
     got = build(name, seed).state_dict()
@@ -142,7 +147,7 @@ def test_cli_encoder_choices_are_the_table():
     subparsers = next(a for a in parser._actions if a.dest == "command").choices
     encoders = [a for p in subparsers.values() for a in p._actions if a.dest == "encoder"]
     assert encoders
-    assert PAIRS == ["siglip", "clip", "resnet_sbert", "resnet_dsv2lite"]
+    assert PAIRS == ["siglip", "clip", "resnet_sbert", "resnet_dsv2lite", "kimivl_a3b"]
     for action in encoders:
         assert list(action.choices) == PAIRS and action.default == "siglip"
 

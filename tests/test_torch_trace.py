@@ -271,8 +271,8 @@ def test_metrics_are_in_the_benchmark():
 
     bench = registry.load()
     cells = {m["name"]: m["workloads"] for m in bench["per_layer"] if m["name"] in READINGS}
-    assert cells == {name: ["siglip.train_cp" if name.endswith(".train")
-                            else "resnet-sbert.train_ocp"] for name in READINGS}
+    assert cells == {name: ["siglip.train_cp"] if name.endswith(".train")
+                     else ["resnet-sbert.train_ocp", "kimivl.train_ocp"] for name in READINGS}
 
 
 # --------------------------------------------------------------- card --
