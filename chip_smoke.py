@@ -1023,10 +1023,11 @@ def phase_kimivl():
 
 # -------------------------------------------------------------- resnet --
 # ResNet-18 on its NHWC route (models/towers/resnet.py, csrc/resnet_nhwc.cu)
-# at an original-CP microbatch: 5,600 images of 224 x 224. The kernels bit
-# for bit against their plain versions at RESNET_CHECK_B images and odd
-# sizes, then at the microbatch's shapes (the stem's 112 x 112 x 64 output
-# and stage 1's 56 x 56 x 64) over the whole microbatch, the plain versions
+# at an original-CP microbatch: 5,600 images of 224 x 224. The kernels
+# against their plain versions (bit for bit; the bfloat16 stem within
+# stem_bound) at RESNET_CHECK_B images and odd sizes, then at the
+# microbatch's shapes (the stem's input, its 112 x 112 x 64 map and stage
+# 1's 56 x 56 x 64) over the whole microbatch, the plain versions
 # RESNET_F32_CHUNK images at a time, and timed there; the tower on the route and on the
 # NCHW eager math it replaced, each against the float32 tower (NCHW, TF32
 # off, in chunks), on random images under BatchNorm statistics calibrated
@@ -1064,11 +1065,80 @@ def _resnet_nchw_features(model, x, calibrate: bool = False):
     return x.mean(dim=(2, 3))
 
 
+def stem_bound(x, w, want):
+    """What the bfloat16 stem may differ by from its plain version ``want``
+    (cuDNN's convolution, rounded, then the stem's pool) at each output:
+    2^-7 (max(1, |want|) + |m|), m the plain version's pooled convolution
+    before the bias. Only the convolution's float32 sum order differs; it
+    can move a sum across a bfloat16 rounding point, one unit in the last
+    place of the pooled value (at most 2^-7 |m|), and the epilogue's own
+    rounding adds one of the output (2^-7 max(1, |want|)). Everything after
+    the convolution's rounding is exact."""
+    m = F.max_pool2d(F.conv2d(x, w, stride=2, padding=3), 3, 2, padding=1).float()
+    return 2.0 ** -7 * (want.float().abs().clamp(min=1) + m.abs())
+
+
+def _stem_operands(x_uint8, b, gen):
+    """The stem's operands: the normaliser's bfloat16 NHWC images, a
+    He-normal weight and a bias."""
+    from outfitx_tpu_torch.core.config import ENCODER_PAIRS
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
+    row = ENCODER_PAIRS["resnet_sbert"]
+    mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                 for v in (row.mean, row.std))
+    x = rn.normalize(x_uint8[:b], mean, std, torch.bfloat16)
+    w = (torch.randn((64, 3, 7, 7), generator=gen, device="cuda") * math.sqrt(2 / 147)).to(
+        torch.bfloat16)
+    return x, w, 0.5 * torch.randn(64, generator=gen, device="cuda")
+
+
+def _stem_checks(images, gen):
+    """The stem against its plain version and against the route it replaced
+    (cuDNN's convolution then ``stem_pool``): bfloat16 within stem_bound,
+    float32 (cuDNN's convolution, then ``stem_pool``) bit for bit; at the
+    tower's widths and at odd heights and narrow widths; one launch a
+    bfloat16 call, none a float32 one."""
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
+    cases = []
+    odd = torch.randint(0, 256, (3, 3, 37, 40), generator=gen, device="cuda", dtype=torch.uint8)
+    tall = torch.randint(0, 256, (2, 3, 45, 8), generator=gen, device="cuda", dtype=torch.uint8)
+    wide = torch.randint(0, 256, (2, 3, 23, 120), generator=gen, device="cuda", dtype=torch.uint8)
+    for imgs in (images[:RESNET_CHECK_B], odd, tall, wide):
+        x, w, bias = _stem_operands(imgs, imgs.shape[0], gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd, wd = x.to(dtype, memory_format=torch.channels_last), w.to(dtype)
+            before = rn.stem_conv_pool.launches
+            got = rn.stem_conv_pool(xd, wd, bias)
+            launched = rn.stem_conv_pool.launches - before
+            want = rn.stem_conv_pool_reference(xd, wd, bias)
+            today = rn.stem_pool(F.conv2d(xd, wd, stride=2, padding=3), bias)
+            diff = (got.float() - want.float()).abs()
+            over = int((diff > stem_bound(xd, wd, want)).sum()) if dtype == torch.bfloat16 \
+                else int((got != want).sum())
+            cases.append({
+                "kernel": "stem_conv_pool", "dtype": _dtype_name(dtype), "shape": list(x.shape),
+                "launches": launched, "max_abs_err": float(diff.max()),
+                "unequal": int((got != want).sum()), "over_bound": over,
+                "over_bound_today": int((diff > stem_bound(xd, wd, today)).sum()),
+                # past the output's own rounding alone, 2^-7 max(1, |want|)
+                "over_output_rounding": int(
+                    (diff > 2.0 ** -7 * want.float().abs().clamp(min=1)).sum()),
+            })
+            check(over == 0 and cases[-1]["over_bound_today"] == 0
+                  and launched == (dtype == torch.bfloat16),
+                  f"the stem disagrees with its plain version: {cases[-1]}")
+    torch.cuda.synchronize()
+    return cases
+
+
 def _resnet_kernel_checks(images):
     """Each kernel against its plain version, bit for bit, float32 and
     bfloat16: the normaliser against the float32 normaliser then a cast
     (what the tower took before), the epilogue with and without a
-    residual and the stem's pool at the tower's widths and at odd sizes."""
+    residual and the stem's pool at the tower's widths and at odd sizes;
+    the stem (``_stem_checks``)."""
     from outfitx_tpu_torch.core.config import ENCODER_PAIRS
     from outfitx_tpu_torch.data.preprocess import make_normalizer
     from outfitx_tpu_torch.ops import resnet_nhwc as rn
@@ -1105,24 +1175,28 @@ def _resnet_kernel_checks(images):
                 case("stem_pool", dtype, shape, rn.stem_pool(y, bias),
                      rn.stem_pool_reference(y, bias))
     torch.cuda.synchronize()
-    return cases
+    return cases + _stem_checks(images, gen)
 
 
-def _against_plain(kernel, got, plain, checks):
+def _against_plain(kernel, got, plain, checks, bound=None):
     """The kernel's output over the whole microbatch against ``plain(s)``,
     its plain version over the images of slice ``s``, RESNET_F32_CHUNK
     images at a time: the largest absolute difference and the unequal
-    elements, appended to ``checks``; equal bit for bit or it fails."""
-    err, unequal = 0.0, 0
+    elements, appended to ``checks``; equal bit for bit or it fails, or,
+    given ``bound(s, want)`` (the largest difference allowed at each
+    element), within it."""
+    err, unequal, over = 0.0, 0, 0
     for i in range(0, got.shape[0], RESNET_F32_CHUNK):
         s = slice(i, i + RESNET_F32_CHUNK)
         want = plain(s)
-        err = max(err, float((got[s].float() - want.float()).abs().max()))
+        diff = (got[s].float() - want.float()).abs()
+        err = max(err, float(diff.max()))
         unequal += int((got[s] != want).sum())
-        del want
+        over += int((diff > bound(s, want)).sum()) if bound else int((got[s] != want).sum())
+        del want, diff
     checks.append({"kernel": kernel, "shape": list(got.shape), "elements": got.numel(),
-                   "max_abs_err": err, "unequal": unequal})
-    check(unequal == 0, f"resnet_nhwc disagrees with its plain version: {checks[-1]}")
+                   "max_abs_err": err, "unequal": unequal, "over_bound": over})
+    check(over == 0, f"resnet_nhwc disagrees with its plain version: {checks[-1]}")
 
 
 def _resnet_kernel_timing(images):
@@ -1158,6 +1232,35 @@ def _resnet_kernel_timing(images):
         "bound_ms": bound(images.numel() * 3), "bound_by": "bytes",
         "plain_ms": cuda_ms(lambda: rn.normalize_reference(images, mean, std, dt), 3, warmup=1),
     }}
+    # The stem: its operations (K = 147, as the convolution needs them)
+    # against its bytes (the input read once, the pooled output written once).
+    x, w, bias = _stem_operands(images, n, gen)
+    got = rn.stem_conv_pool(x, w, bias)
+    _against_plain("stem_conv_pool", got, lambda s: rn.stem_conv_pool_reference(x[s], w, bias),
+                   checks, bound=lambda s, want: stem_bound(x[s], w, want))
+    oh, ph = 112, 56
+    flops = 2 * n * oh * oh * 64 * 147
+    nbytes = (x.numel() + got.numel()) * 2
+    del got
+    torch.cuda.empty_cache()
+    part = x[:RESNET_PLAIN_B]
+    out["stem_conv_pool"] = {
+        "shape": list(x.shape), "out_shape": [n, 64, ph, ph],
+        "ms": cuda_ms(lambda: rn.stem_conv_pool(x, w, bias), 10),
+        "bound_ms": max(flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "flops_bound_ms": flops / PEAK_FLOPS[dt] * 1e3, "bytes_bound_ms": bound(nbytes),
+        "plain_ms": cuda_ms(lambda: rn.stem_conv_pool_reference(part, w, bias), 3, warmup=1),
+        "plain_images": RESNET_PLAIN_B,
+        "library_ms": cuda_ms(
+            lambda: rn.stem_pool(F.conv2d(x, w, stride=2, padding=3), bias), 5, warmup=2),
+        "library": "cuDNN's F.conv2d, then stem_pool",
+    }
+    out["stem_conv_pool"]["bound_share"] = (out["stem_conv_pool"]["bound_ms"]
+                                            / out["stem_conv_pool"]["ms"])
+    del x, part
+    torch.cuda.empty_cache()
     y, res = activation((n, 64, 112, 112)), activation((n, 64, 112, 112))
     bias = torch.randn(64, generator=gen, device="cuda")
     _against_plain("stem_pool", rn.stem_pool(y, bias),
@@ -1242,12 +1345,17 @@ def phase_resnet():
         def nchw():
             return _resnet_nchw_features(model, to_f32(images).to(torch.bfloat16))
 
-        counts = (rn.normalize.launches, rn.stem_pool.launches, rn.bias_add_relu.launches)
+        def kernel_counts():
+            return (rn.normalize.launches, rn.stem_conv_pool.launches, rn.stem_pool.launches,
+                    rn.bias_add_relu.launches)
+
+        counts = kernel_counts()
         feats = route()
         torch.cuda.synchronize()
-        launches = [a - b for a, b in zip(
-            (rn.normalize.launches, rn.stem_pool.launches, rn.bias_add_relu.launches), counts)]
-        check(launches == [1, 1, 16], f"the NHWC route launched {launches}, not [1, 1, 16]")
+        launches = [a - b for a, b in zip(kernel_counts(), counts)]
+        check(launches == [1, 1, 0, 16],
+              f"the NHWC route launched {launches} (normalize, stem_conv_pool, stem_pool, "
+              "bias_add_relu), not [1, 1, 0, 16]")
         err_route = _row_errors(feats, ref)
         del feats
         err_nchw = _row_errors(nchw(), ref)
@@ -2642,8 +2750,9 @@ def _ocp_counts(resnet: bool = False):
         "layernorm": layer_norm.launches,
     }
     if resnet:
-        counts["resnet_nhwc"] = (rn.normalize.launches + rn.stem_pool.launches
-                                 + rn.bias_add_relu.launches)
+        counts["resnet_nhwc"] = (rn.normalize.launches + rn.stem_conv_pool.launches
+                                 + rn.stem_pool.launches + rn.bias_add_relu.launches)
+        counts["stem_conv_pool"] = rn.stem_conv_pool.launches
     return counts
 
 
@@ -2654,6 +2763,7 @@ def _reset_ocp_counts():
 
     masked_mha.launches = masked_mha.bwd_launches = layer_norm.launches = 0
     rn.normalize.launches = rn.stem_pool.launches = rn.bias_add_relu.launches = 0
+    rn.stem_conv_pool.launches = 0
 
 
 def _ocp_step_grads(net, source, split, device):
@@ -2844,8 +2954,9 @@ def phase_original_cp():
             "masked_mha_fwd": (tc.n_layers + model_cfg.transformer.n_layers) * (micro + evals),
             "masked_mha_bwd": model_cfg.transformer.n_layers * micro,
             "layernorm": (minilm_ln + _ln_per_forward(model_cfg)) * (micro + evals),
-            # the normaliser, the stem's epilogue and pool, two epilogues a block
+            # the normaliser, the stem, two epilogues a block
             "resnet_nhwc": (2 + 2 * 4 * vc.blocks_per_stage) * (micro + evals),
+            "stem_conv_pool": micro + evals,  # one a bfloat16 ResNet forward
         }
         check(counts == want, f"original-CP launches {counts}, expected {want}")
         changed = [n for n, p in encoder.named_parameters()
@@ -3034,11 +3145,16 @@ def _resnet_sbert(cfg, root):
     model_cfg = OutfitXConfig(item_encoder=dataclasses.replace(
         ItemEncoderConfig.for_type("resnet_sbert"), text_model_name=""
     ))
+    from outfitx_tpu_torch.ops import resnet_nhwc as rn
+
     n_batches = -(-PRECOMPUTE_ITEMS // cfg.batch_size)
+    stems = rn.stem_conv_pool.launches
     result, runner, emb, counts, peak = _sweep(
         cfg, model_cfg, root / "resnet_sbert", PRECOMPUTE_ITEMS,
         {"masked_mha_fwd": 6 * n_batches, "attn_block": 0, "mlp_fused": 0},
     )
+    stems = rn.stem_conv_pool.launches - stems
+    check(stems == n_batches, f"the sweep's stem ran {stems} times in {n_batches} batches")
     vc, tc = runner.encoder.vision.cfg, runner.encoder.text.cfg
     check((vc.image_size, vc.stage_channels, tc.d_model, tc.n_heads, tc.n_layers,
            tc.d_mlp, tc.vocab_size, tc.ln_eps)
@@ -4910,8 +5026,9 @@ def main() -> int:
             "at_parallel_dp_rank": layernorm["6528x1536"],
             "host_us_per_call_at_serving_bucket": host,
         }),
-        ("resnet_nhwc", "none (XLA fuses the JAX tower's BatchNorm, ReLU, adds and pool)",
-         resnet["stem_pool"], {
+        ("resnet_nhwc", "none (XLA fuses the JAX tower's stem, BatchNorm, ReLU, adds and pool)",
+         resnet["stem_conv_pool"], {
+             "at_stem_pool": resnet["stem_pool"],
              "at_stem_bias_relu": resnet["bias_add_relu_stem"],
              "at_stage1_bias_add_relu": resnet["bias_add_relu_stage1"],
              "at_stage1_bias_relu": resnet["bias_relu_stage1"],

@@ -14,7 +14,8 @@ multiplies the convolution's weight before its cast to the compute dtype,
 and ``bias - mean * scale`` stays a float32 bias. One epilogue a
 convolution (``ops/resnet_nhwc.py``) adds the bias, then the block's
 residual, then applies ReLU, rounding once; a downsample's bias joins its
-block's second epilogue, and the stem's epilogue and max-pool are one pass.
+block's second epilogue. The stem, its convolution, max-pool, bias and
+ReLU, is one call (``stem_conv_pool``), in bfloat16 on the card one kernel.
 The JAX tower (NCHW, BatchNorm as a multiply-add after each convolution)
 agrees to float32 round-off. Parameter names are torchvision's, so
 ``convert_resnet18`` only selects and widens a torchvision state dict.
@@ -33,7 +34,7 @@ from torch import nn
 
 from outfitx_tpu_torch.core import dtypes
 from outfitx_tpu_torch.models.towers.common import as_f32, dense
-from outfitx_tpu_torch.ops.resnet_nhwc import bias_add_relu, stem_pool
+from outfitx_tpu_torch.ops.resnet_nhwc import bias_add_relu, stem_conv_pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +73,17 @@ class Conv(nn.Module):
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
 
+    def fold(self, bn: FrozenBatchNorm, dtype: torch.dtype):
+        """(the weight with ``bn``'s scale folded in, in ``dtype``
+        channels-last; ``bn``'s float32 bias, for an epilogue)."""
+        scale, bias = bn.fold()
+        w = self.weight * scale[:, None, None, None]
+        return w.to(dtype, memory_format=torch.channels_last), bias
+
     def forward(self, x, bn: FrozenBatchNorm):
         """x NHWC -> (the convolution with ``bn``'s scale folded into its
         weight, NHWC in x's dtype; ``bn``'s float32 bias, for an epilogue)."""
-        scale, bias = bn.fold()
-        w = self.weight * scale[:, None, None, None]
-        w = w.to(x.dtype, memory_format=torch.channels_last)
+        w, bias = self.fold(bn, x.dtype)
         return F.conv2d(x, w, stride=self.stride, padding=self.padding), bias
 
 
@@ -141,7 +147,9 @@ class ResNet18(nn.Module):
         """images (B, 3, H, W) normalised, in any layout and dtype -> (B,
         512) globally pooled, in the compute dtype."""
         dtype = dtypes.resolve(self.cfg.compute_dtype)
-        x = stem_pool(*self.conv1(images.to(dtype, memory_format=torch.channels_last), self.bn1))
+        x = images.to(dtype, memory_format=torch.channels_last)
+        x = stem_conv_pool(x, *self.conv1.fold(self.bn1, dtype), self.conv1.stride,
+                           self.conv1.padding)
         for stage in self.stages():
             x = stage(x)
         return x.mean(dim=(2, 3))
